@@ -70,16 +70,17 @@ def init(gen):
     return params, stats
 
 
-def _conv_bn_relu(layer, feats, table, mask, down=False, xtri=None):
+def _conv_bn_relu(layer, feats, table, mask, up_table=None, xtri=None):
     """One (conv -> masked BN -> relu) layer over batched site lists.
 
     feats [B, S_in, C_in] -> [B, S_out, C_out] f32. BN statistics are joint
-    over the batch's active sites.
+    over the batch's active sites. up_table given => strided conv; xtri
+    given => w-triple packed submanifold conv.
     """
     if xtri is not None:
         y = subm_conv_xtri(feats, layer["w"], *xtri)
-    elif down:
-        y = down_conv(feats, layer["w"], table)
+    elif up_table is not None:
+        y = down_conv(feats, layer["w"], table, up_table)
     else:
         y = subm_conv(feats, layer["w"], table)
     y, bn_batch = masked_batch_norm(
@@ -117,20 +118,26 @@ def apply_sites(params, codes, geom, static: EncoderStatic):
     for name, kind, n, _, _ in ARCH:
         if kind == "down":
             table = geom[f"down{lvl}"]
+            up = geom[f"up{lvl}"]
             lvl += 1
         else:
             table = geom[f"nbr{lvl}"]
+            up = None
         layer_stats = []
         for i in range(n):
             is_down = kind == "down" and i == 0
             tbl = table if i == 0 else geom[f"nbr{lvl}"]
             x, bn_batch = _conv_bn_relu(
-                params[name][i], x, tbl, masks[lvl], down=is_down,
+                params[name][i], x, tbl, masks[lvl],
+                up_table=up if is_down else None,
                 xtri=None if is_down else xtri_tabs(lvl))
             # conv accumulates f32, BN runs f32; only the STORED activation
             # (= next conv's gathered bytes) drops to compute_dtype
             x = x.to(dt)
-            layer_stats.append({"mean": bn_batch[0], "var": bn_batch[1]})
+            # the statistics feed the running-stat EMA, which carries no
+            # graph
+            layer_stats.append({"mean": bn_batch[0].detach(),
+                                "var": bn_batch[1].detach()})
         new_stats[name] = layer_stats
 
         if name in DENSE_AFTER:

@@ -1,2 +1,3 @@
-"""Ops: sparse convolution (host rulebook + forward), the hat planner and
-interpolation with its CUDA kernel, positional encoding, compositing."""
+"""Ops: sparse convolution (host rulebook, forward and scatter-free
+backwards), the hat planner and interpolation with its CUDA kernels,
+positional encoding, compositing."""

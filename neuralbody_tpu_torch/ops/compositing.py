@@ -5,14 +5,17 @@ exclusive-cumprod transmittance, weighted sums for rgb/depth/disp/acc.
 import torch
 
 
-def raw2outputs(raw, z_vals, rays_d, white_bkgd=False):
-    """Composite per-sample raw predictions into per-ray maps (no noise:
-    the forward render is deterministic).
+def raw2outputs(raw, z_vals, rays_d, white_bkgd=False, raw_noise_std=0.0,
+                generator=None):
+    """Composite per-sample raw predictions into per-ray maps.
 
     Args:
       raw:    [R, S, 4] rgb logits + density.
       z_vals: [R, S] sample depths along each ray.
       rays_d: [R, 3] (unnormalized) ray directions.
+      raw_noise_std: > 0 adds N(0, std^2) noise to the density (training
+        only; every shipped config sets 0), drawn from `generator`, a
+        torch.Generator on raw's device, which it then requires.
 
     Returns dict(rgb_map [R,3], disp_map [R], acc_map [R], weights [R,S],
     depth_map [R]).
@@ -22,7 +25,13 @@ def raw2outputs(raw, z_vals, rays_d, white_bkgd=False):
     dists = dists * torch.linalg.norm(rays_d[..., None, :], dim=-1)
 
     rgb = torch.sigmoid(raw[..., :3])
-    alpha = 1.0 - torch.exp(-torch.relu(raw[..., 3]) * dists)
+    sigma = raw[..., 3]
+    if raw_noise_std > 0.0:
+        if generator is None:
+            raise ValueError("raw_noise_std > 0 needs a torch.Generator")
+        sigma = sigma + torch.randn(sigma.shape, generator=generator,
+                                    device=sigma.device) * raw_noise_std
+    alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
 
     # exclusive cumulative product of (1 - alpha) -> transmittance
     trans = torch.cumprod(

@@ -11,7 +11,10 @@ The HOST (numpy) samples depths, sorts ray samples into spatial groups and
 emits, per (level, group), the site rows whose hat support can touch the
 group as compact (start, cumulative-length) segments. The DEVICE expands
 the segments, contracts each group against its rows (ops/hat_kernel.py)
-and de-sorts with the inverse permutation.
+and de-sorts with the inverse permutation. The gradient reaches the site
+features through one autograd Function around the four levels, whose
+backward is the hat kernel's backward (the JAX package's custom VJP,
+neuralbody_tpu/ops/pallas_hat.py).
 
 The host half calls the numpy planner directly (the C++ planner binding
 comes with the data loader).
@@ -21,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .hat_kernel import hat_interp_level
+from .hat_kernel import hat_interp_level, hat_interp_level_bwd
 
 # ---------------------------------------------------------------------------
 # host: planning (numpy)
@@ -369,6 +372,50 @@ def inverse_perm(perm, n):
         reduce="amin")
 
 
+class _HatInterpolate(torch.autograd.Function):
+    """The four levels' hat interpolation into one [ngrp, P, sum C] buffer.
+
+    Forward: each level's kernel writes its own column slice (no
+    concatenation). Backward: each level's backward kernel reads its column
+    slice of the output gradient through the row stride (no copy) and
+    returns d_feats in the features' dtype; sites, rows and positions get
+    none (ray geometry and site coordinates carry no parameter gradient).
+    In bf16 mode the level's whole f32 sum is rounded to bf16 once (the
+    JAX package rounds each group's d_rf before its scatter).
+    """
+
+    @staticmethod
+    def forward(ctx, levels, *feats):
+        ngrp, P = levels[0][2].shape[:2]
+        out = torch.empty((ngrp, P, sum(f.shape[-1] for f in feats)),
+                          dtype=torch.float32, device=feats[0].device)
+        c0 = 0
+        for (sites, rows, pos), f in zip(levels, feats):
+            C = f.shape[-1]
+            hat_interp_level(f, sites, rows, pos, out=out[..., c0:c0 + C])
+            c0 += C
+        ctx.save_for_backward(*(t for lvl in levels for t in lvl))
+        ctx.feat_meta = [(f.shape[-1], f.dtype) for f in feats]
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        saved = ctx.saved_tensors
+        if gout.stride(-1) != 1 or gout.stride(0) != gout.shape[1] * \
+                gout.stride(1):
+            gout = gout.contiguous()
+        grads, c0 = [], 0
+        for i, (C, dtype) in enumerate(ctx.feat_meta):
+            if ctx.needs_input_grad[1 + i]:
+                sites, rows, pos = saved[3 * i:3 * i + 3]
+                grads.append(hat_interp_level_bwd(
+                    gout[..., c0:c0 + C], sites, rows, pos, dtype).to(dtype))
+            else:
+                grads.append(None)
+            c0 += C
+        return (None, *grads)
+
+
 def hat_interpolate(site_feats, geom, rows, dhw_grouped, static):
     """Multi-scale feature interpolation via grouped hat contractions.
 
@@ -380,19 +427,14 @@ def hat_interpolate(site_feats, geom, rows, dhw_grouped, static):
       static: ModelStatic (for out_sh).
 
     Returns [ngrp, P, sum C_l] f32; each level writes its own column slice.
+    Differentiable with respect to site_feats.
     """
-    ngrp, P = dhw_grouped.shape[:2]
     dev = dhw_grouped.device
     out_sh = torch.tensor(static.out_sh, dtype=torch.float32, device=dev)
-    out = torch.empty((ngrp, P, sum(f.shape[-1] for f in site_feats)),
-                      dtype=torch.float32, device=dev)
-    c0 = 0
-    for lvl, feats in zip((1, 2, 3, 4), site_feats):
+    levels = []
+    for lvl in (1, 2, 3, 4):
         sh_l = torch.tensor([s // (2 ** lvl) for s in static.out_sh],
                             dtype=torch.float32, device=dev)
-        pos = dhw_grouped * ((sh_l - 1.0) / out_sh)
-        C = feats.shape[-1]
-        hat_interp_level(feats, geom[f"sites{lvl}"], rows[lvl], pos,
-                         out=out[..., c0:c0 + C])
-        c0 += C
-    return out
+        pos = (dhw_grouped * ((sh_l - 1.0) / out_sh)).detach()
+        levels.append((geom[f"sites{lvl}"], rows[lvl], pos))
+    return _HatInterpolate.apply(tuple(levels), *site_feats)

@@ -10,7 +10,19 @@ Gather tables point missing/padded entries at row S (a zero row appended
 to the features), so every index is in range by construction; nothing here
 clamps an index.
 
-Forward only: the scatter-free custom backwards come with training.
+The three convolutions are torch.autograd.Functions with the JAX package's
+scatter-free backwards: every backward is a gather of the COTANGENT, never
+a scatter-add and never a re-gather of the input x:
+  subm:  dx = conv(gy) with the kernel tap-flipped and transposed
+         (off_{26-k} = -off_k under the lexicographic enumeration);
+         dW[k] = sum_q x[q] gy[nbr[q, 26-k]]^T reuses that gather of gy and
+         flips the small [27, Cin, Cout] result.
+  xtri:  one packed gather of gy serves dx and dW; the [9, Cin, 3Cout]
+         result is laid out as [27, Cin, Cout] and flipped.
+  down:  dx gathers gy through the host-built up table; dW reuses it
+         (down_tbl[s, k] = q  <=>  up_tbl[q, k] = s).
+The cotangent is cast to x's dtype before it is gathered and dx returns in
+x's dtype, as the JAX backwards do.
 """
 from __future__ import annotations
 
@@ -286,7 +298,7 @@ def build_frame_geometry(vertex_coords: np.ndarray, out_sh, site_caps,
 
 
 # ---------------------------------------------------------------------------
-# Device-side compute (torch, forward)
+# Device-side compute (torch)
 # ---------------------------------------------------------------------------
 
 def site_mask(nsite, cap):
@@ -363,10 +375,34 @@ def sparse_conv_matmul(gathered, w):
     return torch.einsum("bksc,kcd->bksd", gathered, w).sum(1)
 
 
+def _weight_grad(x, gathered):
+    """x [(B,) S, Cin] against the gathered cotangent [(B,) K, S, E] summed
+    over sites (and batch) -> [K, Cin, E] in f32 (bf16 values are exact in
+    f32, so this is the bf16 x bf16 -> f32 contraction)."""
+    spec = "sc,kse->kce" if x.dim() == 2 else "bsc,bkse->kce"
+    return torch.einsum(spec, x.float(), gathered.float())
+
+
+class _SubmConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, nbr):
+        ctx.save_for_backward(x, w, nbr)
+        return sparse_conv_matmul(gather_taps(x, nbr), w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w, nbr = ctx.saved_tensors
+        gyg = gather_taps(gy.to(x.dtype), nbr)          # [(B,) 27, S, Cout]
+        w_t = torch.flip(w, (0,)).transpose(1, 2)       # [27, Cout, Cin]
+        dx = sparse_conv_matmul(gyg, w_t).to(x.dtype)
+        dw = torch.flip(_weight_grad(x, gyg), (0,))
+        return dx, dw.to(w.dtype), None
+
+
 def subm_conv(x, w, nbr):
     """Submanifold conv: x [(B,) S, Cin], w [27, Cin, Cout],
     nbr [(B,) 27, S]."""
-    return sparse_conv_matmul(gather_taps(x, nbr), w)
+    return _SubmConv.apply(x, w, nbr)
 
 
 def xtri_gather(x, lnbr, rnbr, nbr9, augl, augr):
@@ -413,15 +449,51 @@ def xtri_matmul(g9, w):
     return torch.einsum("bkse,ked->bksd", g9, w9).sum(1)
 
 
+class _SubmConvXtri(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, lnbr, rnbr, nbr9, augl, augr):
+        ctx.save_for_backward(x, w, lnbr, rnbr, nbr9, augl, augr)
+        return xtri_matmul(xtri_gather(x, lnbr, rnbr, nbr9, augl, augr), w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w, *tabs = ctx.saved_tensors
+        gyg9 = xtri_gather(gy.to(x.dtype), *tabs)       # [(B,) 9, S, 3Cout]
+        w_t = torch.flip(w, (0,)).transpose(1, 2)       # [27, Cout, Cin]
+        dx = xtri_matmul(gyg9, w_t).to(x.dtype)
+        cin, cout = w.shape[1], w.shape[2]
+        d = _weight_grad(x, gyg9)                # [9, Cin, 3Cout]
+        d27 = d.reshape(9, cin, 3, cout).transpose(1, 2).reshape(
+            27, cin, cout)
+        dw = torch.flip(d27, (0,)).to(w.dtype)
+        return dx, dw, None, None, None, None, None
+
+
 def subm_conv_xtri(x, w, lnbr, rnbr, nbr9, augl, augr):
     """Packed submanifold conv: x [(B,) cap, Cin] -> [(B,) cap, Cout]."""
-    return xtri_matmul(xtri_gather(x, lnbr, rnbr, nbr9, augl, augr), w)
+    return _SubmConvXtri.apply(x, w, lnbr, rnbr, nbr9, augl, augr)
 
 
-def down_conv(x, w, down_tbl):
-    """Stride-2 conv: x [(B,) S_in, Cin] -> [(B,) S_out, Cout]; table
-    [(B,) 27, S_out]. (The up table joins it with the backward.)"""
-    return sparse_conv_matmul(gather_taps(x, down_tbl), w)
+class _DownConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, down_tbl, up_tbl):
+        ctx.save_for_backward(x, w, up_tbl)
+        return sparse_conv_matmul(gather_taps(x, down_tbl), w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w, up_tbl = ctx.saved_tensors
+        gup = gather_taps(gy.to(x.dtype), up_tbl)       # [(B,) 27, S_in, Cout]
+        dx = sparse_conv_matmul(gup, w.transpose(1, 2)).to(x.dtype)
+        dw = _weight_grad(x, gup)
+        return dx, dw.to(w.dtype), None, None
+
+
+def down_conv(x, w, down_tbl, up_tbl):
+    """Stride-2 conv: x [(B,) S_in, Cin] -> [(B,) S_out, Cout]; tables
+    down [(B,) 27, S_out] (forward gather) and up [(B,) 27, S_in] (its
+    transpose, for the backward)."""
+    return _DownConv.apply(x, w, down_tbl, up_tbl)
 
 
 def masked_batch_norm(x, mask, scale, bias, eps=1e-3):

@@ -20,11 +20,13 @@ from ..ops.hat_interp import (decode_z, expand_segments, hat_interpolate,
 
 
 class RenderSettings(NamedTuple):
-    """Render-time static settings (the forward render's subset of the JAX
-    package's RenderSettings; the sample count comes from the batch)."""
+    """Render-time static settings (the hat path's subset of the JAX
+    package's RenderSettings; the sample count comes from the batch, and
+    the host planner samples the depths, perturbed or not)."""
     model: lx.ModelStatic
     voxel_size: tuple = (0.005, 0.005, 0.005)
     white_bkgd: bool = False
+    raw_noise_std: float = 0.0  # density noise in training renders
     hull_views: int = 0      # >0: cull against this many source-view masks
     hull_mode: str = "multi"  # "multi" (mmsk) or "snapshot" (msk)
     img_hw: tuple = (512, 512)
@@ -121,8 +123,14 @@ def precompute_hat_device(batch, rows_caps, site_caps, n_samples):
     return batch
 
 
-def render_rays_hat(params, batch, settings: RenderSettings):
-    """Forward render over the host-planned hat fields (perturb off).
+def render_rays_hat(params, batch, settings: RenderSettings, train=False,
+                    generator=None):
+    """Render over the host-planned hat fields.
+
+    The host planner samples the depths (prepare_hat_batch's rng: perturbed
+    for training, midpoints otherwise), so `train` only switches on the
+    raw-noise term, drawn from `generator`. Autograd records the render
+    unless the caller disables it.
 
     Requires the planner's fields (ops/hat_interp.prepare_hat_batch: z_vals
     or z_frac, hat_sort, hat_seg_a{1..4}, hat_seg_cum{1..4}) plus
@@ -171,15 +179,17 @@ def render_rays_hat(params, batch, settings: RenderSettings):
         else:
             wpts, vdir = _sorted_pts_dirs(elem, z, srt, ngrp, n_samples)
         outs.append(_hat_finish(params, elem, [x[b] for x in site_feats], s,
-                                rows, srt, z, wpts, vdir, R, n_samples))
+                                rows, srt, z, wpts, vdir, R, n_samples,
+                                s.raw_noise_std if train else 0.0,
+                                generator))
     ret = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
     return ret, new_stats
 
 
 def _hat_finish(params, elem, feats, s, rows, srt, z, wpts, vdir, R,
-                n_samples):
+                n_samples, raw_noise_std=0.0, generator=None):
     """Interpolate -> decode -> hull -> de-sort -> quadrature (one batch
-    element)."""
+    element; shared by the training and the eval render)."""
     frame = {"R": elem["R"], "Th": elem["Th"], "bounds": elem["bounds"],
              "latent_index": elem["latent_index"]}
     ppts = lx.pts_to_can_pts(wpts, frame["R"], frame["Th"])
@@ -201,20 +211,24 @@ def _hat_finish(params, elem, feats, s, rows, srt, z, wpts, vdir, R,
 
     # de-sort: ray-layout sample i reads its first sorted occurrence
     raw = raw[inverse_perm(srt, R * n_samples)].reshape(R, n_samples, 4)
-    out = raw2outputs(raw, z, elem["ray_d"], s.white_bkgd)
+    out = raw2outputs(raw, z, elem["ray_d"], s.white_bkgd, raw_noise_std,
+                      generator)
     del out["weights"]
     return out
 
 
-def render_rays(params, batch, settings: RenderSettings):
-    """Forward render of all rays in a batch (perturb off).
+def render_rays(params, batch, settings: RenderSettings, train=False,
+                generator=None):
+    """Render all rays in a batch.
 
     Batches that carry the host-planned hat fields (hat_sort) take the hat
-    path. Returns (ret, new_bn_stats): ret has rgb_map [B,R,3] and
-    disp/acc/depth [B,R].
+    path; train=True adds the raw-noise term (settings.raw_noise_std, drawn
+    from `generator`). Returns (ret, new_bn_stats): ret has rgb_map
+    [B,R,3] and disp/acc/depth [B,R].
     """
     if "hat_sort" in batch:
-        return render_rays_hat(params, batch, settings)
+        return render_rays_hat(params, batch, settings, train=train,
+                               generator=generator)
     raise NotImplementedError(
         "only the host-planned hat path is ported; the site-interpolation "
         "render (batches without hat_sort) comes with the eval-render "

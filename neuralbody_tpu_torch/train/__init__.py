@@ -1,1 +1,2 @@
-"""Steps: the evaluation (forward render) step."""
+"""Steps (the training step and the forward-render step) and the
+optimizer with its learning-rate schedules."""

@@ -1,2 +1,3 @@
 """Utilities: device resolution and transfer, the CUDA build, synthetic
-scenes and the weight transplant from the JAX package."""
+scenes and the weight and optimizer-state transplant from the JAX
+package."""

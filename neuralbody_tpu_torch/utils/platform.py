@@ -10,12 +10,17 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """None -> "cuda". A CUDA device with no card present raises."""
+    """None -> the current card, as an indexed device ("cuda:0"), which is
+    what a tensor on it reports. A CUDA device with no card present
+    raises."""
     device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch versions on the CPU")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 

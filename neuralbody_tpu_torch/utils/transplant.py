@@ -25,5 +25,28 @@ def _tree(x, device):
 
 def params_from_jax(params_np, stats_np, device="cpu"):
     """(params, bn_stats) pytrees of the JAX package -> the port's dicts of
-    tensors on `device`."""
+    tensors on `device`. A gradient pytree has the params' structure and
+    maps the same way."""
     return _tree(params_np, device), _tree(stats_np, device)
+
+
+def opt_state_from_jax(opt_state, device="cpu"):
+    """The Adam state of an optax chain (clip -> [decay ->] adam) -> the
+    port's optimizer state {mu, nu, count} (train/optimizer.Adam
+    .load_state_dict), so that a JAX run resumes in the port. The chain's
+    Adam element is found, at any depth of the chain's nested tuples, by
+    its mu/nu/count fields; the others hold no state."""
+    def walk(s):
+        if all(hasattr(s, k) for k in ("mu", "nu", "count")):
+            return [s]
+        if isinstance(s, (list, tuple)):
+            return [a for x in s for a in walk(x)]
+        return []
+
+    found = walk(opt_state)
+    if len(found) != 1:
+        raise ValueError(f"expected one Adam state in the chain, found "
+                         f"{len(found)}")
+    adam = found[0]
+    return {"mu": _tree(adam.mu, device), "nu": _tree(adam.nu, device),
+            "count": int(np.asarray(adam.count))}

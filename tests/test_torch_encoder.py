@@ -126,7 +126,8 @@ def test_down_conv(scene, dtype, batched):
     ref = j_sc.down_conv(xj, jnp.asarray(w), jnp.asarray(g["down0"]),
                          jnp.asarray(g["up0"]))
     out = t_sc.down_conv(xt, torch.from_numpy(w),
-                         torch.from_numpy(g["down0"]))
+                         torch.from_numpy(g["down0"]),
+                         torch.from_numpy(g["up0"]))
     assert out.shape == ref.shape
     np.testing.assert_allclose(_np(out), _np(ref), **TOL)
 
