@@ -1,26 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (neuralbody_tpu_torch) on one NVIDIA
-GPU. It builds the port's CUDA kernels from the checkout and drives the
-port's two main paths at full width through their entry points:
+GPU. It builds the port's CUDA kernels from the checkout (one nvcc per
+source, started together) and drives the port's three main paths at full
+width through their entry points:
 
-  * the forward render (eval_step), bf16 and f32, held against the port's
-    own CPU render;
+  * the forward render on the host-planned hat path (eval_step), bf16 and
+    f32, held against the port's own CPU render;
   * the training step (train_step: encode, hat interpolation, decode,
     composite, masked MSE, backward, value-clip + Adam, BN EMA), bf16 and
     f32: the first step's loss and gradients held against the same step
     run by the port on the CPU, then ten steps on one batch whose loss must
-    fall.
+    fall;
+  * the plan-free eval render (eval_step on a rays-only batch of 8192 rays
+    in four chunks, hull culling on), bf16 and f32, through the
+    site-interpolation and the dense branch: held against the port's CPU
+    render, the two branches against each other, and the site render of
+    the 1024-ray batch against its hat render; then render_density_grid on
+    one chunk of points against the CPU.
 
-Each hat kernel (forward and backward) is held against its plain PyTorch
-version on the inputs the main paths hand it, and timed beside its plain
-version, a library yardstick and its bound; the render and the training
-step are timed and profiled.
+Each kernel (the hat contraction forward and backward, and the
+gather-fused sparse conv in all 17 layers of the encoder, forward and dx)
+is held against its plain PyTorch version on the inputs the main paths hand
+it, and timed beside its plain version, a library yardstick and its bound;
+the renders and the training step are timed and profiled.
 
     python3 chip_smoke.py
 
-The full-width batch is the reference working point: 6890 vertices, 5 mm
-voxels, 1024 rays x 64 samples, encoder channels 16/32/64/128/128, decoder
-352 -> 256 -> ... -> 3, random weights from a seeded torch.Generator.
+The full-width batches are the reference working point: 6890 vertices,
+5 mm voxels, 64 samples per ray, 1024 rays (hat paths) or 8192 rays
+(plan-free render), encoder channels 16/32/64/128/128, decoder 352 -> 256
+-> ... -> 3, random weights from a seeded torch.Generator.
 
 Every phase raises on failure. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -28,6 +37,7 @@ Exits non-zero with no result line when no CUDA device is present.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import os
@@ -69,6 +79,17 @@ MAPS = ("rgb_map", "acc_map", "depth_map", "disp_map")
 SPIN_CYCLES = 10_000_000  # ~5 ms at the H100's clock: covers host enqueue
 RENDER_ROUNDS = 8         # rounds of bf16 and f32 renders, interleaved
 RENDERS_PER_ROUND = 3     # per mode and round
+EVAL_RAYS = 8192          # the plan-free render's batch:
+CHUNK_RAYS = 2048         # four chunks of 131,072 points,
+HULL_VIEWS = 4            # culled against four source views
+EVAL_ROUNDS = 4           # rounds of bf16 and f32 renders per branch
+CONV_LAYERS = 17          # sparse convs per encode (and dx per backward)
+CONV_TOL = 1e-5   # of the layer's scale, f32 and bf16 storage alike: both
+# versions round the operands alike, so only the f32 sum's order differs
+SITE_DENSE_TOL = 1e-4     # the two branches read the same numbers (f32)
+CONV_REPLACES = ("tools/probes/pallas_gather.py:25, "
+                 "tools/probes/indexed_ops.py:122, "
+                 "tools/probes/pallas_dconv_scatter.py:50")
 
 
 def card_line():
@@ -115,6 +136,36 @@ def hat_bound(torch, rows, pos, C, capS, elem_bytes, nnz, mode, nbytes_out):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[mode]
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def conv_bound(torch, T, idx, W, mode):
+    """The least time of one sparse conv on this card: its bytes (each table
+    row some index names read once at the table's element size, the index
+    table and the f32 weights read, the f32 output written) against its
+    operations (2 E Cout per index that names a row; the zero-row entries
+    need none)."""
+    n_rows, E = T.shape[-2:]
+    Cout = W.shape[2]
+    named = idx[idx < n_rows]
+    nbytes = (torch.unique(named).numel() * E * T.element_size()
+              + 4 * (idx.numel() + W.numel())
+              + 4 * idx.numel() // idx.shape[-2] * Cout)
+    ops = 2 * E * Cout * named.numel()
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[mode]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def library_conv(torch, T, idx, W):
+    """The yardstick of the conv kernel: PyTorch's own gather and batched
+    product (a zero row appended, index_select, a cast, torch.bmm and a sum
+    over the taps), which is how the port ran every conv before it had the
+    kernel. Timed here, called nowhere in the port. One batch element."""
+    T, idx = T[0], idx[0]
+    fpad = torch.cat([T, torch.zeros_like(T[:1])], dim=0)
+    g = torch.index_select(fpad, 0, idx.reshape(-1).long()).reshape(
+        *idx.shape, T.shape[1])
+    return torch.bmm(g.float(), W.to(T.dtype).float()).sum(0)
 
 
 def materialized_hat(torch, sites, rows, pos):
@@ -200,8 +251,10 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from neuralbody_tpu_torch.models import latent_xyzc as lx
     from neuralbody_tpu_torch.models.sparse_conv_net import EncoderStatic
-    from neuralbody_tpu_torch.ops import hat_interp, hat_kernel
-    from neuralbody_tpu_torch.renderer.renderer import RenderSettings
+    from neuralbody_tpu_torch.ops import (conv_kernel, hat_interp,
+                                          hat_kernel, sparse_conv)
+    from neuralbody_tpu_torch.renderer.renderer import (RenderSettings,
+                                                        render_density_grid)
     from neuralbody_tpu_torch.train import optimizer
     from neuralbody_tpu_torch.train.step import (eval_step, loss_and_grads,
                                                  train_step)
@@ -220,11 +273,17 @@ def main():
     dev = torch.device("cuda")
     modes = ("bf16", "f32")
 
-    # -- 2. build: one nvcc call for the one source of both kernels ---------
+    # -- 2. build: one nvcc call per source, both started together ----------
     t0 = time.perf_counter()
-    hat_kernel.build()
-    emit(phase="build", source="neuralbody_tpu_torch/csrc/hat_interp.cu",
-         entry_points=["hat_interp_level_cuda", "hat_interp_level_bwd_cuda"],
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(hat_kernel.build),
+                    pool.submit(conv_kernel.build)]:
+            job.result()
+    emit(phase="build",
+         sources={"neuralbody_tpu_torch/csrc/hat_interp.cu":
+                  ["hat_interp_level_cuda", "hat_interp_level_bwd_cuda"],
+                  "neuralbody_tpu_torch/csrc/sparse_conv.cu":
+                  ["sparse_conv_cuda"]},
          seconds=time.perf_counter() - t0)
 
     # -- the full-width batches and weights ---------------------------------
@@ -244,6 +303,17 @@ def main():
     ths = tstatic["hat"]
     emit(phase="batch", path="train", host_seconds=time.perf_counter() - t0,
          n_groups=ths["n_groups"], rows_caps=list(ths["rows_caps"]))
+    # the plan-free render's batch: rays only, with source views to cull
+    # against; and the 1024 rays of the hat render without their plan
+    t0 = time.perf_counter()
+    ebatch, estatic = make_batch(n_rays=EVAL_RAYS, n_verts=6890,
+                                 voxel_size=VOX, seed=SEED, hat=False,
+                                 num_views=HULL_VIEWS)
+    rbatch, _ = make_batch(n_rays=N_RAYS, n_verts=6890, voxel_size=VOX,
+                           seed=SEED, hat=False)
+    emit(phase="batch", path="eval", host_seconds=time.perf_counter() - t0,
+         rays=EVAL_RAYS, chunk_rays=CHUNK_RAYS, hull_views=HULL_VIEWS,
+         out_sh=list(estatic["out_sh"]), site_caps=list(estatic["site_caps"]))
 
     def fresh_params(device=dev):
         params, stats = lx.init(torch.Generator().manual_seed(SEED),
@@ -254,6 +324,8 @@ def main():
     params, _ = fresh_params()
     batch_dev = to_device(batch, dev)
     tbatch_dev = to_device(tbatch, dev)
+    ebatch_dev = to_device(ebatch, dev)
+    rbatch_dev = to_device(rbatch, dev)
 
     def settings(mode, plan=hs):
         return RenderSettings(
@@ -261,6 +333,14 @@ def main():
                 out_sh=static["out_sh"], site_caps=static["site_caps"],
                 compute_dtype="bfloat16" if mode == "bf16" else "float32")),
             voxel_size=(VOX,) * 3, hat_rows_caps=plan["rows_caps"])
+
+    def eval_settings(mode, site, hull_views=HULL_VIEWS):
+        return RenderSettings(
+            model=lx.ModelStatic(encoder=EncoderStatic(
+                out_sh=estatic["out_sh"], site_caps=estatic["site_caps"],
+                compute_dtype="bfloat16" if mode == "bf16" else "float32")),
+            voxel_size=(VOX,) * 3, n_samples=N_SAMPLES,
+            chunk_rays=CHUNK_RAYS, hull_views=hull_views, site_interp=site)
 
     def schedule():
         return optimizer.make_lr_schedule(LR, "exponential", ep_iter=EP_ITER,
@@ -282,20 +362,42 @@ def main():
         bwd_inputs[mode].append((grad, sites, rows, pos, dtype))
         return bwd_launch(grad, sites, rows, pos, dtype)
 
+    # and every conv the encoder hands the conv wrapper: the render's 17
+    # forward convs, and the 17 dx convs that the training step's backward
+    # runs after its own 17 forward ones
+    conv_launch = sparse_conv.sparse_conv
+    conv_calls = []
+
+    def conv_recorder(T, idx, W):
+        conv_calls.append((T, idx, W))
+        return conv_launch(T, idx, W)
+
     card_grads = {}
+    conv_inputs = {mode: {} for mode in modes}
     hat_interp.hat_interp_level = recorder
+    sparse_conv.sparse_conv = conv_recorder
     try:
         for mode in modes:
+            conv_calls.clear()
             eval_step(params, batch_dev, settings(mode), device=dev)
+            conv_inputs[mode]["fwd"] = list(conv_calls)
         hat_interp.hat_interp_level = launch
         hat_interp.hat_interp_level_bwd = bwd_recorder
         for mode in modes:
             p0, _ = fresh_params()
+            conv_calls.clear()
             card_grads[mode] = loss_and_grads(p0, tbatch_dev,
                                               settings(mode, ths))
+            if len(conv_calls) != 2 * CONV_LAYERS:
+                raise AssertionError(
+                    f"{mode} step: {len(conv_calls)} convs, not "
+                    f"{CONV_LAYERS} forward and {CONV_LAYERS} dx")
+            conv_inputs[mode]["dx"] = conv_calls[CONV_LAYERS:]
     finally:
         hat_interp.hat_interp_level = launch
         hat_interp.hat_interp_level_bwd = bwd_launch
+        sparse_conv.sparse_conv = conv_launch
+    conv_calls.clear()
     torch.cuda.synchronize()
 
     max_err = {}
@@ -354,40 +456,83 @@ def main():
                                      f"{lvl}: err {err} at scale {scale}")
             bwd_err[mode] = max(bwd_err[mode], err)
 
+    conv_err = {}
+    for mode in modes:
+        want = torch.bfloat16 if mode == "bf16" else torch.float32
+        for kind, layers in conv_inputs[mode].items():
+            if len(layers) != CONV_LAYERS:
+                raise AssertionError(f"{mode} {kind}: {len(layers)} convs")
+            conv_err[(kind, mode)] = 0.0
+            for layer, (T, idx, W) in enumerate(layers):
+                if T.dtype != want:
+                    raise AssertionError(f"{mode} {kind} {layer}: {T.dtype}")
+                out = conv_kernel.sparse_conv(T, idx, W)
+                ref = conv_kernel.sparse_conv_plain(T, idx, W)
+                torch.cuda.synchronize()
+                err = (out - ref).abs().max().item()
+                scale = ref.abs().max().item()
+                emit(phase="kernel_vs_plain", kernel="sparse_conv",
+                     direction=kind, mode=mode, layer=layer,
+                     shape=dict(n_rows=T.shape[-2], E=T.shape[-1],
+                                K=idx.shape[-2], S=idx.shape[-1],
+                                Cout=W.shape[2]),
+                     max_abs_err=err, scale=scale,
+                     max_rel_err=err / scale if scale else None,
+                     tol_rel=CONV_TOL)
+                if not (scale > 0 and err <= CONV_TOL * scale):
+                    raise AssertionError(f"conv kernel {mode} {kind} layer "
+                                         f"{layer}: err {err} at scale "
+                                         f"{scale}")
+                conv_err[(kind, mode)] = max(conv_err[(kind, mode)], err)
+
+    def reset_counts():
+        hat_kernel.LAUNCHES = hat_kernel.BWD_LAUNCHES = 0
+        conv_kernel.CONV_LAUNCHES = 0
+
+    def read_counts():
+        return (hat_kernel.LAUNCHES, hat_kernel.BWD_LAUNCHES,
+                conv_kernel.CONV_LAUNCHES)
+
+    def check_maps(ret, rays, what):
+        for k in MAPS:
+            want = (1, rays, 3) if k == "rgb_map" else (1, rays)
+            if tuple(ret[k].shape) != want or not torch.isfinite(ret[k]).all():
+                raise AssertionError(f"{what} {k}: shape "
+                                     f"{tuple(ret[k].shape)} or not finite")
+        return {k: ret[k].cpu() for k in MAPS}
+
+    def map_errors(ret, ref, tol, what):
+        errs = {}
+        for k in ("rgb_map", "acc_map", "depth_map"):
+            errs[k] = (ret[k] - ref[k]).abs().max().item()
+            scale = max(1.0, ref[k].abs().max().item())
+            if errs[k] > tol * scale:
+                raise AssertionError(f"{what} {k}: err {errs[k]} (scale "
+                                     f"{scale}, tolerance {tol})")
+        return errs
+
     # -- 4. the render path: full-width renders on the card ------------------
     launches, renders = {}, {}
     for mode in modes:
-        hat_kernel.LAUNCHES = hat_kernel.BWD_LAUNCHES = 0
+        reset_counts()
         ret = eval_step(params, batch_dev, settings(mode), device=dev)
         torch.cuda.synchronize()
-        launches[("render", mode)] = (hat_kernel.LAUNCHES,
-                                      hat_kernel.BWD_LAUNCHES)
-        if launches[("render", mode)] != (4, 0):
-            raise AssertionError(f"{mode} render launched the hat kernels "
+        launches[("render", mode)] = read_counts()
+        if launches[("render", mode)] != (4, 0, CONV_LAYERS):
+            raise AssertionError(f"{mode} render launched the kernels "
                                  f"{launches[('render', mode)]} times, "
-                                 "not (4, 0)")
-        for k in MAPS:
-            want = (1, N_RAYS, 3) if k == "rgb_map" else (1, N_RAYS)
-            if tuple(ret[k].shape) != want or not torch.isfinite(ret[k]).all():
-                raise AssertionError(f"{mode} {k}: shape "
-                                     f"{tuple(ret[k].shape)} or not finite")
-        renders[mode] = {k: ret[k].cpu() for k in MAPS}
+                                 f"not (4, 0, {CONV_LAYERS})")
+        renders[mode] = check_maps(ret, N_RAYS, f"{mode} render")
 
     t0 = time.perf_counter()
     ref = eval_step(to_device(params, "cpu"), batch, settings("f32"),
                     device="cpu")
     cpu_s = time.perf_counter() - t0
     for mode, ret in renders.items():
-        errs = {}
-        for k in ("rgb_map", "acc_map", "depth_map"):
-            err = (ret[k] - ref[k]).abs().max().item()
-            scale = max(1.0, ref[k].abs().max().item())
-            errs[k] = err
-            if err > RENDER_TOL[mode] * scale:
-                raise AssertionError(f"{mode} render {k}: err {err} vs the "
-                                     f"CPU render (scale {scale})")
         emit(phase="render_vs_cpu", mode=mode,
-             launches=launches[("render", mode)][0], max_abs_err=errs,
+             launches=launches[("render", mode)][0],
+             max_abs_err=map_errors(ret, ref, RENDER_TOL[mode],
+                                    f"{mode} render vs the CPU"),
              tol_rel=RENDER_TOL[mode],
              mean_acc=ret["acc_map"].mean().item(), cpu_render_s=cpu_s)
 
@@ -457,33 +602,114 @@ def main():
 
     # (a) + (c): the main training path, TRAIN_STEPS steps on one batch per
     # mode from the seeded weights, 4 forward and 4 backward hat launches
-    # per step, the loss falling
+    # and 17 forward and 17 dx conv launches per step, the loss falling
     losses = {}
     for mode in modes:
         tp, tbn = fresh_params()
         opt = optimizer.make_optimizer(tp, schedule())
         s = settings(mode, ths)
-        hat_kernel.LAUNCHES = hat_kernel.BWD_LAUNCHES = 0
+        reset_counts()
         per_step, losses[mode] = [], []
         for _ in range(TRAIN_STEPS):
-            f0, b0 = hat_kernel.LAUNCHES, hat_kernel.BWD_LAUNCHES
+            before = read_counts()
             tbn, st = train_step(tp, tbn, opt, tbatch_dev, s, device=dev)
             losses[mode].append(st["loss"].item())
-            per_step.append((hat_kernel.LAUNCHES - f0,
-                             hat_kernel.BWD_LAUNCHES - b0))
+            per_step.append(tuple(a - b for a, b in zip(read_counts(),
+                                                        before)))
         torch.cuda.synchronize()
-        launches[("train", mode)] = (hat_kernel.LAUNCHES,
-                                     hat_kernel.BWD_LAUNCHES)
+        launches[("train", mode)] = read_counts()
         finite = all(torch.isfinite(p).all() for _, p in leaves(tp))
         emit(phase="train", mode=mode, steps=TRAIN_STEPS, lr=LR,
              losses=losses[mode], launches_per_step=per_step[0],
              launches=launches[("train", mode)], params_finite=bool(finite))
-        if any(ps != (4, 4) for ps in per_step):
-            raise AssertionError(f"{mode} steps launched the hat kernels "
-                                 f"{per_step} times, not (4, 4) each")
+        if any(ps != (4, 4, 2 * CONV_LAYERS) for ps in per_step):
+            raise AssertionError(f"{mode} steps launched the kernels "
+                                 f"{per_step} times, not (4, 4, "
+                                 f"{2 * CONV_LAYERS}) each")
         if not (finite and all(map(math.isfinite, losses[mode]))
                 and losses[mode][-1] < losses[mode][0]):
             raise AssertionError(f"{mode} training: losses {losses[mode]}")
+
+    # -- 5b. the plan-free eval render: rays only, chunked, hull culling on --
+    branches = ("site", "dense")
+    eval_renders = {}
+    for branch in branches:
+        for mode in modes:
+            reset_counts()
+            ret = eval_step(params, ebatch_dev,
+                            eval_settings(mode, branch == "site"), device=dev)
+            torch.cuda.synchronize()
+            launches[(f"eval_{branch}", mode)] = read_counts()
+            if launches[(f"eval_{branch}", mode)] != (0, 0, CONV_LAYERS):
+                raise AssertionError(
+                    f"{mode} {branch} render launched the kernels "
+                    f"{launches[(f'eval_{branch}', mode)]} times, not "
+                    f"(0, 0, {CONV_LAYERS})")
+            eval_renders[(branch, mode)] = check_maps(
+                ret, EVAL_RAYS, f"{mode} {branch} render")
+    params_cpu = to_device(params, "cpu")
+    for branch in branches:
+        t0 = time.perf_counter()
+        ref = eval_step(params_cpu, ebatch,
+                        eval_settings("f32", branch == "site"), device="cpu")
+        cpu_s = time.perf_counter() - t0
+        for mode in modes:
+            ret = eval_renders[(branch, mode)]
+            emit(phase="eval_render_vs_cpu", branch=branch, mode=mode,
+                 rays=EVAL_RAYS, chunks=EVAL_RAYS // CHUNK_RAYS,
+                 hull_views=HULL_VIEWS,
+                 conv_launches=launches[(f"eval_{branch}", mode)][2],
+                 max_abs_err=map_errors(ret, ref, RENDER_TOL[mode],
+                                        f"{mode} {branch} render vs the CPU"),
+                 tol_rel=RENDER_TOL[mode],
+                 mean_acc=ret["acc_map"].mean().item(), cpu_render_s=cpu_s)
+    emit(phase="site_vs_dense", mode="f32", tol_rel=SITE_DENSE_TOL,
+         max_abs_err=map_errors(eval_renders[("site", "f32")],
+                                eval_renders[("dense", "f32")],
+                                SITE_DENSE_TOL, "site vs dense render"))
+    # the hat render's 1024 rays through the site branch, no hull: the two
+    # interpolations are the same function of the same unperturbed depths
+    ret = check_maps(eval_step(params, rbatch_dev,
+                               eval_settings("f32", True, hull_views=0),
+                               device=dev), N_RAYS, "site render")
+    emit(phase="site_vs_hat", mode="f32", rays=N_RAYS,
+         tol_rel=RENDER_TOL["f32"],
+         max_abs_err=map_errors(ret, renders["f32"], RENDER_TOL["f32"],
+                                "site vs hat render"))
+
+    # render_density_grid on one chunk of the render's own sample points
+    z = torch.linspace(0.0, 1.0, N_SAMPLES)
+    near, far = (torch.from_numpy(ebatch[k][0, :CHUNK_RAYS, None])
+                 for k in ("near", "far"))
+    pts = (torch.from_numpy(ebatch["ray_o"][0, :CHUNK_RAYS, None])
+           + torch.from_numpy(ebatch["ray_d"][0, :CHUNK_RAYS, None])
+           * (near * (1.0 - z) + far * z)[..., None]).reshape(1, -1, 3)
+    gbatch = dict(to_device(ebatch, "cpu"), pts=pts)
+    s = eval_settings("f32", False)
+    with torch.no_grad():
+        reset_counts()
+        alpha = render_density_grid(params, to_device(gbatch, dev), s,
+                                    pt_chunk=pts.shape[1])
+        torch.cuda.synchronize()
+        launches[("density_grid", "f32")] = read_counts()
+        t0 = time.perf_counter()
+        ref = render_density_grid(params_cpu, gbatch, s,
+                                  pt_chunk=pts.shape[1])
+        cpu_s = time.perf_counter() - t0
+    err = (alpha.cpu() - ref).abs().max().item()
+    scale = max(1.0, ref.abs().max().item())
+    emit(phase="density_grid_vs_cpu", points=pts.shape[1], max_abs_err=err,
+         scale=scale, tol_rel=RENDER_TOL["f32"],
+         conv_launches=launches[("density_grid", "f32")][2],
+         cpu_seconds=cpu_s)
+    if (tuple(alpha.shape) != (1, pts.shape[1])
+            or not torch.isfinite(alpha).all()
+            or err > RENDER_TOL["f32"] * scale
+            or launches[("density_grid", "f32")] != (0, 0, CONV_LAYERS)):
+        raise AssertionError(f"density grid: shape {tuple(alpha.shape)}, "
+                             f"err {err} at scale {scale}, launches "
+                             f"{launches[('density_grid', 'f32')]}")
+    del gbatch, alpha, ref, params_cpu
     emit(phase="launches", **{f"{p}_{m}": v for (p, m), v in
                               launches.items()})
 
@@ -557,6 +783,34 @@ def main():
         tot["bound_by"] = bound_by.pop() if len(bound_by) == 1 else "bytes"
         timing[("bwd", mode)] = tot
 
+    # the conv kernel, per layer, forward and dx; the sums are one encode's
+    # (and one backward's) convs
+    for mode in modes:
+        for kind, layers in conv_inputs[mode].items():
+            tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+            bound_share = {"bytes": 0.0, "operations": 0.0}
+            for layer, (T, idx, W) in enumerate(layers):
+                k_ms = median_ms(torch, lambda: conv_kernel.sparse_conv(
+                    T, idx, W), runs=15)
+                p_ms = median_ms(torch, lambda: conv_kernel.sparse_conv_plain(
+                    T, idx, W), runs=15)
+                l_ms = median_ms(torch, lambda: library_conv(torch, T, idx, W),
+                                 runs=15)
+                b_ms, by, nbytes, ops = conv_bound(torch, T, idx, W, mode)
+                bound_share[by] += b_ms
+                emit(phase="timing", kernel="sparse_conv", direction=kind,
+                     mode=mode, layer=layer, E=T.shape[-1], K=idx.shape[-2],
+                     S=idx.shape[-1], Cout=W.shape[2], kernel_ms=k_ms,
+                     plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                     bound_by=by, bytes=nbytes, ops=ops, card=card)
+                for k, v in (("ms", k_ms), ("plain_ms", p_ms),
+                             ("library_ms", l_ms), ("bound_ms", b_ms)):
+                    tot[k] += v
+            tot["bound_by"] = max(bound_share, key=bound_share.get)
+            timing[(f"conv_{kind}", mode)] = tot
+            emit(phase="timing_sum", kernel="sparse_conv", direction=kind,
+                 mode=mode, layers=len(layers), card=card, **tot)
+
     # renders, the two modes interleaved
     render_ms, gaps = interleaved_ms(
         torch, lambda m: eval_step(params, batch_dev, settings(m), device=dev),
@@ -571,17 +825,52 @@ def main():
         enc = []
         for _ in range(20):
             t0 = time.perf_counter()
-            lx.encode_sparse_voxels(params, batch_dev["geom"], s.model)
+            lx.encode_sparse_voxels(params, batch_dev["geom"], s.model,
+                                    densify=False)
             torch.cuda.synchronize()
             enc.append(time.perf_counter() - t0)
         q1, _, q3 = statistics.quantiles(times, n=4)
         emit(phase="render_timing", mode=mode, render_ms=med,
              render_ms_q1=q1, render_ms_q3=q3, rays_per_s=N_RAYS / med * 1e3,
              encoder_ms=1e3 * statistics.median(enc),
-             hat_kernel_ms=timing[("fwd", mode)]["ms"], runs=len(times),
-             card=card)
+             hat_kernel_ms=timing[("fwd", mode)]["ms"],
+             conv_kernel_ms=timing[("conv_fwd", mode)]["ms"],
+             runs=len(times), card=card)
         profile_step(torch, lambda: eval_step(params, batch_dev, s,
                                               device=dev), "render", mode, med)
+
+    # the plan-free renders: per branch, the two modes interleaved
+    for branch in branches:
+        site = branch == "site"
+        eval_ms, gaps = interleaved_ms(
+            torch, lambda m: eval_step(params, ebatch_dev,
+                                       eval_settings(m, site), device=dev),
+            modes, EVAL_ROUNDS, RENDERS_PER_ROUND)
+        emit(phase="eval_render_pairs", branch=branch, rounds=EVAL_ROUNDS,
+             renders_per_round=RENDERS_PER_ROUND, bf16_minus_f32_ms=gaps,
+             bf16_slower_rounds=sum(g > 0 for g in gaps), card=card)
+        for mode in modes:
+            times = eval_ms[mode]
+            med = statistics.median(times)
+            q1, _, q3 = statistics.quantiles(times, n=4)
+            torch.cuda.reset_peak_memory_stats()
+            eval_step(params, ebatch_dev, eval_settings(mode, site),
+                      device=dev)
+            torch.cuda.synchronize()
+            emit(phase="eval_render_timing", branch=branch, mode=mode,
+                 rays=EVAL_RAYS, render_ms=med, render_ms_q1=q1,
+                 render_ms_q3=q3, us_per_ray=1e3 * med / EVAL_RAYS,
+                 rays_per_s=EVAL_RAYS / med * 1e3,
+                 conv_kernel_ms=timing[("conv_fwd", mode)]["ms"],
+                 runs=len(times),
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 card=card)
+            if mode == "bf16":
+                profile_step(
+                    torch, lambda: eval_step(params, ebatch_dev,
+                                             eval_settings(mode, site),
+                                             device=dev),
+                    f"eval_{branch}", mode, med)
 
     # training steps, the two modes interleaved, each on its own weights
     state = {}
@@ -610,7 +899,9 @@ def main():
         emit(phase="train_timing", mode=mode, step_ms=med, step_ms_q1=q1,
              step_ms_q3=q3, train_rays_per_s=N_RAYS / med * 1e3,
              hat_fwd_ms=timing[("fwd", mode)]["ms"],
-             hat_bwd_ms=timing[("bwd", mode)]["ms"], runs=len(times),
+             hat_bwd_ms=timing[("bwd", mode)]["ms"],
+             conv_fwd_ms=timing[("conv_fwd", mode)]["ms"],
+             conv_dx_ms=timing[("conv_dx", mode)]["ms"], runs=len(times),
              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
         profile_step(torch, lambda: one_step(mode), "train", mode, med)
 
@@ -628,6 +919,24 @@ def main():
                 "launches": (launches[("render", mode)][i]
                              + launches[("train", mode)][i]),
                 "max_abs_err": (max_err if kind == "fwd" else bwd_err)[mode],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]})
+    # the conv kernel's forward launches: 17 per encode in every forward
+    # path and in each training step; its dx launches: 17 per training step
+    # (34 counted per step above)
+    fwd_paths = [k for k in launches if k[0] != "train"]
+    for kind, kname in (("fwd", "sparse_conv"), ("dx", "sparse_conv_dx")):
+        for mode in modes:
+            t = timing[(f"conv_{kind}", mode)]
+            n = launches[("train", mode)][2] // 2
+            if kind == "fwd":
+                n += sum(launches[k][2] for k in fwd_paths if k[1] == mode)
+            kernels.append({
+                "name": f"{kname}[{mode}]", "route": "cuda",
+                "source": "neuralbody_tpu_torch/csrc/sparse_conv.cu",
+                "replaces": CONV_REPLACES, "launches": n,
+                "max_abs_err": conv_err[(kind, mode)],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"]})

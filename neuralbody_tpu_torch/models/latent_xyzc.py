@@ -16,7 +16,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops.embedder import positional_encoding
-from ..ops.sparse_conv import scatter_vertex_codes
+from ..ops.grid_sample import multiscale_grid_sample
+from ..ops.sparse_conv import scatter_vertex_codes, site_trilinear_sample
 from ..utils.platform import resolve_device, to_device
 from . import sparse_conv_net
 from .nn_utils import dense, dense_init, embedding_init, mxu_dtype
@@ -62,23 +63,51 @@ def init(gen: torch.Generator, num_train_frame: int, nv: int = 6890,
     return to_device(params, device), to_device(stats, device)
 
 
-def encode_sparse_voxels(params, geom, static: ModelStatic):
-    """Vertex codes -> per-level site features (site-list form).
+def encode_sparse_voxels(params, geom, static: ModelStatic, densify=True):
+    """Vertex codes -> the dense volumes [B, D_l, H_l, W_l, C_l], or with
+    densify=False the per-level site features [B, S_l, C_l].
 
     geom: batched frame geometry (each leaf [B, ...]). Returns
-    (site_feats, new_bn_stats).
+    (site_feats | volumes, new_bn_stats).
     """
     cap0 = static.encoder.site_caps[0]
     codes = scatter_vertex_codes(params["vertex_code"], geom["vert_idx"],
                                  cap0)
-    return sparse_conv_net.apply_sites(params["xyzc_net"], codes, geom,
-                                       static.encoder)
+    fn = sparse_conv_net.apply if densify else sparse_conv_net.apply_sites
+    return fn(params["xyzc_net"], codes, geom, static.encoder)
 
 
 def pts_to_can_pts(pts, R, Th):
     """World -> SMPL frame: (p - Th) @ R.  pts [..., 3], R [3, 3],
     Th [1, 3] or [3]."""
     return torch.matmul(pts - Th.reshape(1, 3), R)
+
+
+def get_grid_coords(ppts, bounds, voxel_size, out_sh):
+    """SMPL-frame points -> normalized grid coords (xyz order, [-1, 1]),
+    with the reference's normalization: division by out_sh, not by
+    out_sh - 1."""
+    dhw = get_dhw_vox(ppts, bounds, voxel_size)
+    dhw = dhw / torch.tensor(out_sh, dtype=dhw.dtype,
+                             device=dhw.device) * 2.0 - 1.0
+    return dhw[..., [2, 1, 0]]
+
+
+def interpolate_features(grid_coords, volumes):
+    """Trilinear sample of each scale's dense volume at shared coords,
+    concatenated -> [N, 352]."""
+    return multiscale_grid_sample(volumes, grid_coords)
+
+
+def interpolate_site_features(site_feats, index_vols, dhw_vox, static):
+    """The same samples from the site features through per-level int32
+    index volumes (one batch element): no dense float volume exists, and
+    the backward scatters into [S_l, C] rows."""
+    return torch.cat([
+        site_trilinear_sample(feats, ivol, dhw_vox, static.out_sh,
+                              static.encoder.site_caps[lvl])
+        for lvl, (feats, ivol) in enumerate(zip(site_feats, index_vols), 1)],
+        dim=-1)
 
 
 def get_dhw_vox(ppts, bounds, voxel_size):
@@ -91,6 +120,15 @@ def _density_trunk(params, feat, dt=None):
     net = torch.relu(dense(params["fc_0"], feat, dt))
     net = torch.relu(dense(params["fc_1"], net, dt))
     return torch.relu(dense(params["fc_2"], net, dt))
+
+
+def calculate_density(params, wpts, volumes, frame, static: ModelStatic,
+                      voxel_size):
+    """wpts [N, 3] -> alpha [N, 1], from the dense volumes, in f32."""
+    ppts = pts_to_can_pts(wpts, frame["R"], frame["Th"])
+    gc = get_grid_coords(ppts, frame["bounds"], voxel_size, static.out_sh)
+    net = _density_trunk(params, interpolate_features(gc, volumes))
+    return dense(params["alpha_fc"], net)
 
 
 def decode_raw(params, feat, wpts, viewdir, frame, static: ModelStatic):
@@ -119,3 +157,21 @@ def decode_raw(params, feat, wpts, viewdir, frame, static: ModelStatic):
     net = torch.relu(dense(params["view_fc"], features, dt))
     rgb = dense(params["rgb_fc"], net, dt)
     return torch.cat([rgb, alpha], dim=-1)
+
+
+def calculate_density_color(params, wpts, viewdir, volumes, frame,
+                            static: ModelStatic, voxel_size, index_vols=None):
+    """wpts/viewdir [N, 3] -> raw [N, 4] (rgb logits + sigma).
+
+    volumes: one batch element's dense volumes (index_vols None) or its
+    per-level site features (index_vols given: the site-interpolation
+    path).
+    """
+    ppts = pts_to_can_pts(wpts, frame["R"], frame["Th"])
+    if index_vols is not None:
+        dhw = get_dhw_vox(ppts, frame["bounds"], voxel_size)
+        feat = interpolate_site_features(volumes, index_vols, dhw, static)
+    else:
+        gc = get_grid_coords(ppts, frame["bounds"], voxel_size, static.out_sh)
+        feat = interpolate_features(gc, volumes)
+    return decode_raw(params, feat, wpts, viewdir, frame, static)

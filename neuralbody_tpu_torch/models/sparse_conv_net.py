@@ -15,7 +15,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops.sparse_conv import (
-    down_conv, masked_batch_norm, site_mask, subm_conv, subm_conv_xtri,
+    down_conv, masked_batch_norm, scatter_dense, scatter_index_volume,
+    site_mask, subm_conv, subm_conv_xtri,
 )
 
 # (name, kind, n_convs, cin, cout); kind 'subm' keeps the site set,
@@ -45,6 +46,9 @@ class EncoderStatic(NamedTuple):
     out_sh: tuple    # (D, H, W), multiples of 32
     site_caps: tuple  # 5 ints
     compute_dtype: str = "float32"
+
+    def level_sh(self, lvl: int) -> tuple:
+        return tuple(s // (2 ** lvl) for s in self.out_sh)
 
 
 def init(gen):
@@ -144,6 +148,38 @@ def apply_sites(params, codes, geom, static: EncoderStatic):
             site_feats.append(x.float())
 
     return site_feats, new_stats
+
+
+def densify(site_feats, geom, static: EncoderStatic):
+    """Site features -> dense volumes [B, D_l, H_l, W_l, C_l]."""
+    volumes = []
+    for lvl, x in enumerate(site_feats, 1):
+        lsh = static.level_sh(lvl)
+        volumes.append(torch.stack([
+            scatter_dense(xb, sb, lsh)
+            for xb, sb in zip(x, geom[f"sites{lvl}"])]))
+    return volumes
+
+
+def index_volumes(geom, static: EncoderStatic):
+    """Per-level int32 site-index volumes [B, D_l, H_l, W_l] (no grad):
+    the host-built ivol{l} of build_frame_geometry, or a device scatter of
+    the site coords for geoms that carry none."""
+    vols = []
+    for lvl in range(1, 5):
+        if f"ivol{lvl}" in geom:
+            vols.append(geom[f"ivol{lvl}"])
+            continue
+        lsh, cap = static.level_sh(lvl), static.site_caps[lvl]
+        vols.append(torch.stack([scatter_index_volume(sb, lsh, cap)
+                                 for sb in geom[f"sites{lvl}"]]))
+    return vols
+
+
+def apply(params, codes, geom, static: EncoderStatic):
+    """Encoder returning densified volumes (the dense eval / mesh path)."""
+    site_feats, new_stats = apply_sites(params, codes, geom, static)
+    return densify(site_feats, geom, static), new_stats
 
 
 def update_running_stats(stats, new_batch_stats, momentum=BN_MOMENTUM):

@@ -2,13 +2,14 @@
 
 Counterpart of neuralbody_tpu/ops/sparse_conv.py. The host half is a numpy
 copy of the rulebook builder (active-site lists per level and gather tables
-padded to static capacities); the device half runs the convolutions as a
-row gather followed by a batched matmul over the 27 taps, plus the masked
-BatchNorm over active sites.
+padded to static capacities); the device half runs every convolution
+through ops/conv_kernel.sparse_conv (the gather-fused kernel on the card,
+a row gather and a batched matmul over the taps on the CPU), plus the
+masked BatchNorm over active sites, the dense / index-volume scatters and
+the trilinear sampling of site features.
 
-Gather tables point missing/padded entries at row S (a zero row appended
-to the features), so every index is in range by construction; nothing here
-clamps an index.
+Gather tables point missing/padded entries at row S, one past the last
+feature row, which reads zeros.
 
 The three convolutions are torch.autograd.Functions with the JAX package's
 scatter-free backwards: every backward is a gather of the COTANGENT, never
@@ -30,6 +31,9 @@ import itertools
 
 import numpy as np
 import torch
+
+from .conv_kernel import gather_rows, sparse_conv
+from .grid_sample import trilinear_corners
 
 # 27 kernel taps in (kd, kh, kw) lexicographic order; tap k touches input
 # coordinate  p + k - 1  (submanifold)  or  2p + k - 1  (stride-2, pad 1).
@@ -331,50 +335,6 @@ def scatter_vertex_codes(codes, vert_idx, cap):
     return out.reshape(B, cap + 1, C)[:, :cap]
 
 
-def _rows(table, feats_flat):
-    """Row gather feats_flat[table] for any table shape."""
-    idx = table.reshape(-1).long()
-    return torch.index_select(feats_flat, 0, idx).reshape(
-        *table.shape, feats_flat.shape[-1])
-
-
-def _batch_rows(table, n_rows):
-    """Add per-batch row offsets for flattened batched gathers."""
-    B = table.shape[0]
-    offs = torch.arange(B, device=table.device, dtype=torch.int64) * n_rows
-    return table.long() + offs.reshape((B,) + (1,) * (table.dim() - 1))
-
-
-def gather_taps(feats, table):
-    """feats [S, C] or [B, S, C] (+ implicit zero row per batch) gathered
-    by TAP-MAJOR table [27, S_out] / [B, 27, S_out].
-
-    Returns [27, S_out, C] / [B, 27, S_out, C]. Index S (== len(feats))
-    reads the zero row.
-    """
-    if feats.dim() == 2:
-        fpad = torch.cat([feats, torch.zeros_like(feats[:1])], dim=0)
-        return _rows(table, fpad)
-    B, S, C = feats.shape
-    fpad = torch.cat([feats, feats.new_zeros((B, 1, C))], dim=1)
-    return _rows(_batch_rows(table, S + 1), fpad.reshape(B * (S + 1), C))
-
-
-def sparse_conv_matmul(gathered, w):
-    """[(B,) 27, S, Cin] x [27, Cin, Cout] -> [(B,) S, Cout] (f32).
-
-    Batched matmul over the tap axis, then a tap-sum. The operands are
-    rounded to the activations' dtype and multiplied in f32: a bf16 value is
-    exact in f32, and so is the product of two, so with f32 accumulation
-    this is the TPU's bf16 x bf16 -> f32 contraction.
-    """
-    w = w.to(gathered.dtype).float()
-    gathered = gathered.float()
-    if gathered.dim() == 3:
-        return torch.bmm(gathered, w).sum(0)
-    return torch.einsum("bksc,kcd->bksd", gathered, w).sum(1)
-
-
 def _weight_grad(x, gathered):
     """x [(B,) S, Cin] against the gathered cotangent [(B,) K, S, E] summed
     over sites (and batch) -> [K, Cin, E] in f32 (bf16 values are exact in
@@ -383,19 +343,25 @@ def _weight_grad(x, gathered):
     return torch.einsum(spec, x.float(), gathered.float())
 
 
+def _cotangent(gy, x):
+    """The cotangent as the backward's conv reads it: x's dtype, rows
+    contiguous."""
+    return gy.to(x.dtype).contiguous()
+
+
 class _SubmConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, nbr):
         ctx.save_for_backward(x, w, nbr)
-        return sparse_conv_matmul(gather_taps(x, nbr), w)
+        return sparse_conv(x, nbr, w)
 
     @staticmethod
     def backward(ctx, gy):
         x, w, nbr = ctx.saved_tensors
-        gyg = gather_taps(gy.to(x.dtype), nbr)          # [(B,) 27, S, Cout]
+        gy = _cotangent(gy, x)
         w_t = torch.flip(w, (0,)).transpose(1, 2)       # [27, Cout, Cin]
-        dx = sparse_conv_matmul(gyg, w_t).to(x.dtype)
-        dw = torch.flip(_weight_grad(x, gyg), (0,))
+        dx = sparse_conv(gy, nbr, w_t).to(x.dtype)
+        dw = torch.flip(_weight_grad(x, gather_rows(gy, nbr)), (0,))
         return dx, dw.to(w.dtype), None
 
 
@@ -405,64 +371,46 @@ def subm_conv(x, w, nbr):
     return _SubmConv.apply(x, w, nbr)
 
 
-def xtri_gather(x, lnbr, rnbr, nbr9, augl, augr):
-    """Packed neighborhood gather.
+def xtri_table(x, lnbr, rnbr, augl, augr):
+    """The w-triple packed table of x.
 
-    x [(B,) cap, C]; lnbr/rnbr [(B,) cap]; nbr9 [(B,) 9, cap];
-    augl/augr [(B,) F]. Returns [(B,) 9, cap, 3C] where slot j of column t
-    holds x at offset (dd_t, dh_t, j-1) — fixup rows included.
+    x [(B,) cap, C]; lnbr/rnbr [(B,) cap]; augl/augr [(B,) F]. Returns
+    [(B,) cap + F, 3C]: row q < cap is [x[w-left(q)] | x[q] | x[w-right(q)]],
+    row cap + i the augmented row [x[augl[i]] | 0 | x[augr[i]]]. Gathered
+    through nbr9 [(B,) 9, cap] (whose sentinel cap + F lies past the last
+    row and reads zeros), slot j of column t holds x at offset
+    (dd_t, dh_t, j-1).
     """
-    if x.dim() == 2:
-        cap, C = x.shape
-        xpad = torch.cat([x, x.new_zeros((1, C))])
-        base = torch.cat([_rows(lnbr, xpad), x, _rows(rnbr, xpad)], dim=-1)
-        al = _rows(augl, xpad)
-        aug = torch.cat([al, torch.zeros_like(al), _rows(augr, xpad)], dim=-1)
-        tri = torch.cat([base, aug, x.new_zeros((1, 3 * C))], dim=0)
-        return _rows(nbr9, tri)
-    B, cap, C = x.shape
-    xpad = torch.cat([x, x.new_zeros((B, 1, C))], dim=1)
-    flat = xpad.reshape(B * (cap + 1), C)
-    xl = _rows(_batch_rows(lnbr, cap + 1), flat)
-    xr = _rows(_batch_rows(rnbr, cap + 1), flat)
-    base = torch.cat([xl, x, xr], dim=-1)                  # [B, cap, 3C]
-    al = _rows(_batch_rows(augl, cap + 1), flat)
-    ar = _rows(_batch_rows(augr, cap + 1), flat)
-    aug = torch.cat([al, torch.zeros_like(al), ar], dim=-1)
-    F = augl.shape[-1]
-    tri = torch.cat([base, aug, x.new_zeros((B, 1, 3 * C))], dim=1)
-    tri_flat = tri.reshape(B * (cap + F + 1), 3 * C)
-    return _rows(_batch_rows(nbr9, cap + F + 1), tri_flat)  # [B, 9, cap, 3C]
+    cap, F = x.shape[-2], augl.shape[-1]
+    xl, xr, al, ar = gather_rows(
+        x, torch.cat([lnbr, rnbr, augl, augr], dim=-1)).split(
+            [cap, cap, F, F], dim=-2)
+    return torch.cat([torch.cat([xl, x, xr], dim=-1),
+                      torch.cat([al, torch.zeros_like(al), ar], dim=-1)],
+                     dim=-2)
 
 
-def xtri_matmul(g9, w):
-    """[(B,) 9, S, 3Cin] x w [27, Cin, Cout] -> [(B,) S, Cout] (f32).
-
-    w reshaped to [9, 3Cin, Cout] matches the packed slot order (taps are
+def _w9(w):
+    """w [27, Cin, Cout] as [9, 3Cin, Cout]: the packed slot order (taps are
     (dd, dh, dw) lexicographic with dw fastest, KERNEL_OFFSETS)."""
-    cin, cout = w.shape[1], w.shape[2]
-    # operands rounded to g9's dtype, multiplied in f32 (sparse_conv_matmul)
-    w9 = w.reshape(9, 3 * cin, cout).to(g9.dtype).float()
-    g9 = g9.float()
-    if g9.dim() == 3:
-        return torch.bmm(g9, w9).sum(0)
-    return torch.einsum("bkse,ked->bksd", g9, w9).sum(1)
+    return w.reshape(9, 3 * w.shape[1], w.shape[2])
 
 
 class _SubmConvXtri(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, lnbr, rnbr, nbr9, augl, augr):
         ctx.save_for_backward(x, w, lnbr, rnbr, nbr9, augl, augr)
-        return xtri_matmul(xtri_gather(x, lnbr, rnbr, nbr9, augl, augr), w)
+        return sparse_conv(xtri_table(x, lnbr, rnbr, augl, augr), nbr9,
+                           _w9(w))
 
     @staticmethod
     def backward(ctx, gy):
-        x, w, *tabs = ctx.saved_tensors
-        gyg9 = xtri_gather(gy.to(x.dtype), *tabs)       # [(B,) 9, S, 3Cout]
+        x, w, lnbr, rnbr, nbr9, augl, augr = ctx.saved_tensors
+        tri = xtri_table(_cotangent(gy, x), lnbr, rnbr, augl, augr)
         w_t = torch.flip(w, (0,)).transpose(1, 2)       # [27, Cout, Cin]
-        dx = xtri_matmul(gyg9, w_t).to(x.dtype)
+        dx = sparse_conv(tri, nbr9, _w9(w_t)).to(x.dtype)
         cin, cout = w.shape[1], w.shape[2]
-        d = _weight_grad(x, gyg9)                # [9, Cin, 3Cout]
+        d = _weight_grad(x, gather_rows(tri, nbr9))     # [9, Cin, 3Cout]
         d27 = d.reshape(9, cin, 3, cout).transpose(1, 2).reshape(
             27, cin, cout)
         dw = torch.flip(d27, (0,)).to(w.dtype)
@@ -478,14 +426,14 @@ class _DownConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, down_tbl, up_tbl):
         ctx.save_for_backward(x, w, up_tbl)
-        return sparse_conv_matmul(gather_taps(x, down_tbl), w)
+        return sparse_conv(x, down_tbl, w)
 
     @staticmethod
     def backward(ctx, gy):
         x, w, up_tbl = ctx.saved_tensors
-        gup = gather_taps(gy.to(x.dtype), up_tbl)       # [(B,) 27, S_in, Cout]
-        dx = sparse_conv_matmul(gup, w.transpose(1, 2)).to(x.dtype)
-        dw = _weight_grad(x, gup)
+        gy = _cotangent(gy, x)
+        dx = sparse_conv(gy, up_tbl, w.transpose(1, 2)).to(x.dtype)
+        dw = _weight_grad(x, gather_rows(gy, up_tbl))
         return dx, dw.to(w.dtype), None, None
 
 
@@ -512,3 +460,74 @@ def masked_batch_norm(x, mask, scale, bias, eps=1e-3):
     var = (((x - mean) ** 2) * m).sum(dim=dims) / n
     y = (x - mean) * torch.rsqrt(var + eps) * scale + bias
     return y * m, (mean, var * (n / torch.clamp(n - 1.0, min=1.0)))
+
+
+def _linear_sites(sites, out_sh_lvl):
+    """Linear voxel index of each site row in a [D, H, W] volume; rows
+    outside it (the padded rows, coords 2**30) get the dump slot D*H*W."""
+    D, H, W = out_sh_lvl
+    d, h, w = sites.long().unbind(-1)
+    inside = ((d >= 0) & (d < D) & (h >= 0) & (h < H)
+              & (w >= 0) & (w < W))
+    return torch.where(inside, (d * H + h) * W + w, D * H * W)
+
+
+def scatter_dense(feats, sites, out_sh_lvl):
+    """Site features [S, C] -> zero-filled dense volume [D, H, W, C].
+
+    Padded rows carry out-of-bounds coords; they land in a dump slot that
+    is dropped, never out of range.
+    """
+    D, H, W = out_sh_lvl
+    C = feats.shape[-1]
+    vol = torch.zeros((D * H * W + 1, C), dtype=feats.dtype,
+                      device=feats.device)
+    vol = vol.index_add(0, _linear_sites(sites, out_sh_lvl), feats)
+    return vol[:-1].reshape(D, H, W, C)
+
+
+def scatter_index_volume(sites, out_sh_lvl, cap):
+    """Site coords [S, 3] -> dense int32 volume [D, H, W] of site-row
+    indices; empty voxels hold `cap` (the zero row of a [cap+1, C] padded
+    feature table). Carries no gradient."""
+    D, H, W = out_sh_lvl
+    vol = torch.full((D * H * W + 1,), cap, dtype=torch.int32,
+                     device=sites.device)
+    rows = torch.arange(sites.shape[0], dtype=torch.int32,
+                        device=sites.device)
+    vol[_linear_sites(sites, out_sh_lvl)] = rows
+    return vol[:-1].reshape(D, H, W)
+
+
+def site_trilinear_sample(feats, index_vol, dhw_vox, out_sh, cap):
+    """Trilinear interpolation of SITE features through an index volume.
+
+    Equals the zeros-padded align_corners grid_sample of the densified
+    volume, but reads (and in training scatters into) [cap, C] rows
+    instead of a dense volume.
+
+    Args:
+      feats: [cap, C] level site features (padded rows zero).
+      index_vol: [D_l, H_l, W_l] int32 site-row indices (empty = cap).
+      dhw_vox: [N, 3] continuous FULL-RES voxel coords (dhw order).
+      out_sh: full-res grid shape.
+      cap: site capacity (zero-row index).
+
+    Returns [N, C].
+    """
+    if feats.shape[0] != cap:
+        raise ValueError(f"feats has {feats.shape[0]} rows; the index "
+                         f"volume's empty voxels point at row {cap}")
+    sizes = tuple(index_vol.shape)
+    # reference normalization: gc = dhw/out_sh*2-1, then align_corners
+    # unnormalize by (size_l - 1)  =>  pos = dhw/out_sh * (size_l - 1)
+    fd, fh, fw = (dhw_vox[:, a] * ((sizes[a] - 1) / out_sh[a])
+                  for a in range(3))
+    fpad = torch.cat([feats, torch.zeros_like(feats[:1])], dim=0)
+    flat_idx = index_vol.reshape(-1)
+    out = 0.0
+    for lin, w in trilinear_corners(fd, fh, fw, sizes):
+        # a corner outside the volume reads some row at weight zero; an
+        # empty voxel reads the zero row `cap`
+        out = out + fpad[flat_idx[lin].long()] * w[:, None]
+    return out

@@ -1,10 +1,18 @@
-"""Volume renderer, host-planned hat path (counterpart of
-neuralbody_tpu/renderer/renderer.py).
+"""Volume renderer (counterpart of neuralbody_tpu/renderer/renderer.py).
 
-The feature volume is encoded once per batch, every ray sample is
-interpolated through the grouped hat contraction (ops/hat_interp.py),
-decoded, culled against the visual hull and composited. Hull culling zeroes
-the raw field outside the hull, which is what the reference zero-fills.
+The feature volume is encoded once per batch; every ray sample is
+interpolated, decoded, culled against the visual hull and composited. Hull
+culling zeroes the raw field outside the hull, which is what the reference
+zero-fills. Two paths:
+
+  * batches that carry the host planner's fields (hat_sort) go through the
+    grouped hat contraction (ops/hat_interp.py): the training path;
+  * rays-only batches (what the evaluators and visualizers send) sample
+    their depths on the device and are rendered in chunks of chunk_rays
+    rays, through the site features and int32 index volumes
+    (site_interp=True) or through the densified volumes (the reference's
+    grid_sample). render_density_grid, the mesh path, reads the densified
+    volumes too.
 """
 from __future__ import annotations
 
@@ -13,23 +21,30 @@ from typing import NamedTuple
 import torch
 
 from ..models import latent_xyzc as lx
+from ..models import sparse_conv_net
 from ..models.nn_utils import mxu_dtype
 from ..ops.compositing import raw2outputs
 from ..ops.hat_interp import (decode_z, expand_segments, hat_interpolate,
                               inverse_perm)
+from ..ops.ray_ops import sample_along_rays
 
 
 class RenderSettings(NamedTuple):
-    """Render-time static settings (the hat path's subset of the JAX
-    package's RenderSettings; the sample count comes from the batch, and
-    the host planner samples the depths, perturbed or not)."""
+    """Render-time static settings. n_samples, perturb, chunk_rays and
+    site_interp are read for rays-only batches; on the hat path the sample
+    count comes from the batch and the host planner samples the depths,
+    perturbed or not."""
     model: lx.ModelStatic
     voxel_size: tuple = (0.005, 0.005, 0.005)
+    n_samples: int = 64
+    perturb: bool = True     # stratified perturbation in training renders
     white_bkgd: bool = False
     raw_noise_std: float = 0.0  # density noise in training renders
+    chunk_rays: int = 2048   # rays decoded at once: bounds memory
     hull_views: int = 0      # >0: cull against this many source-view masks
     hull_mode: str = "multi"  # "multi" (mmsk) or "snapshot" (msk)
     img_hw: tuple = (512, 512)
+    site_interp: bool = True  # site-feature interpolation (memory-light)
     # static per-level expansion widths of the hat path's compact row
     # segments (= the planner's rows_caps); consulted for segment batches
     hat_rows_caps: tuple = ()
@@ -147,7 +162,7 @@ def render_rays_hat(params, batch, settings: RenderSettings, train=False,
             "rows_caps, e.g. hat_static['rows_caps'])")
 
     site_feats, new_stats = lx.encode_sparse_voxels(
-        params, batch["geom"], s.model)
+        params, batch["geom"], s.model, densify=False)
     if mxu_dtype(s.model.encoder.compute_dtype,
                  site_feats[0].device) == torch.bfloat16:
         # bf16 site features halve the gathered bytes and select the bf16
@@ -217,19 +232,109 @@ def _hat_finish(params, elem, feats, s, rows, srt, z, wpts, vdir, R,
     return out
 
 
+def _frame_info(batch, b):
+    return {"R": batch["R"] if batch["R"].dim() == 2 else batch["R"][b],
+            "Th": batch["Th"][b], "bounds": batch["bounds"][b],
+            "latent_index": batch["latent_index"][b]}
+
+
+def _render_chunk(params, elem, frame, vols, ivols, s, rays, train,
+                  generator):
+    """Sample, decode, hull-cull and composite one chunk of rays of one
+    batch element. rays: (ray_o, ray_d, near, far) of the chunk."""
+    ro, rd, near, far = rays
+    pts, z_vals = sample_along_rays(ro, rd, near, far, s.n_samples,
+                                    generator=generator,
+                                    perturb=s.perturb and train)
+    # padded rays have rd = 0: the clamp keeps NaN out
+    viewdir = rd / torch.clamp(torch.linalg.norm(rd, dim=-1, keepdim=True),
+                               min=1e-8)
+    wpts = pts.reshape(-1, 3)
+    vdir = viewdir.repeat_interleave(s.n_samples, dim=0)
+    raw = lx.calculate_density_color(params, wpts, vdir, vols, frame,
+                                     s.model, s.voxel_size, index_vols=ivols)
+    if s.hull_views > 0:
+        if s.hull_mode == "snapshot":
+            inside = snapshot_hull_mask(
+                wpts, frame, elem["R0_snap"], elem["Th0_snap"], elem["K"],
+                elem["RT"][0], elem["msks"][0], s.img_hw)
+        else:
+            inside = hull_inside_mask(wpts, elem["Ks"], elem["RT"],
+                                      elem["msks"], s.img_hw)
+        raw = raw * inside[:, None]
+    out = raw2outputs(raw.reshape(ro.shape[0], s.n_samples, 4), z_vals, rd,
+                      s.white_bkgd, s.raw_noise_std if train else 0.0,
+                      generator)
+    del out["weights"]  # the [R, S] map is bulky
+    return out
+
+
 def render_rays(params, batch, settings: RenderSettings, train=False,
                 generator=None):
     """Render all rays in a batch.
 
     Batches that carry the host-planned hat fields (hat_sort) take the hat
-    path; train=True adds the raw-noise term (settings.raw_noise_std, drawn
-    from `generator`). Returns (ret, new_bn_stats): ret has rgb_map
-    [B,R,3] and disp/acc/depth [B,R].
+    path. Rays-only batches (geom, ray_o/ray_d/near/far [B, R, .],
+    R/Th/bounds/latent_index, optional hull fields) sample settings.n_samples
+    depths per ray on the device and render in chunks of settings.chunk_rays
+    rays, of which R must be a multiple (pad with ray_mask = 0 rays).
+    train=True turns on the stratified perturbation (settings.perturb) and
+    the raw-noise term (settings.raw_noise_std), both drawn from `generator`,
+    a torch.Generator on the batch's device. Returns (ret, new_bn_stats):
+    ret has rgb_map [B,R,3] and disp/acc/depth [B,R].
     """
+    s = settings
     if "hat_sort" in batch:
         return render_rays_hat(params, batch, settings, train=train,
                                generator=generator)
-    raise NotImplementedError(
-        "only the host-planned hat path is ported; the site-interpolation "
-        "render (batches without hat_sort) comes with the eval-render "
-        "slice of the port")
+    B, R = batch["ray_o"].shape[:2]
+    chunk = min(s.chunk_rays, R)
+    if R % chunk != 0:
+        raise ValueError(
+            f"ray count {R} must be a multiple of chunk_rays {chunk}")
+
+    volumes, new_stats = lx.encode_sparse_voxels(
+        params, batch["geom"], s.model, densify=not s.site_interp)
+    ivols = (sparse_conv_net.index_volumes(batch["geom"], s.model.encoder)
+             if s.site_interp else None)
+
+    outs = []
+    for b in range(B):
+        elem = {k: batch[k][b] for k in _ELEM_KEYS if k in batch}
+        frame = _frame_info(batch, b)
+        vols = [v[b] for v in volumes]
+        iv = [v[b] for v in ivols] if s.site_interp else None
+        chunks = [
+            _render_chunk(params, elem, frame, vols, iv, s,
+                          tuple(elem[k][c0:c0 + chunk]
+                                for k in ("ray_o", "ray_d", "near", "far")),
+                          train, generator)
+            for c0 in range(0, R, chunk)]
+        outs.append({k: torch.cat([c[k] for c in chunks])
+                     for k in chunks[0]})
+    ret = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    return ret, new_stats
+
+
+def render_density_grid(params, batch, settings: RenderSettings,
+                        pt_chunk: int = 2048 * 64):
+    """Density at a padded dense point grid (the mesh extraction path).
+
+    batch["pts"] is [B, P, 3], P a multiple of pt_chunk (padded). Returns
+    alpha [B, P], decoded in f32 from the densified volumes.
+    """
+    s = settings
+    B, P = batch["pts"].shape[:2]
+    if P == 0 or P % pt_chunk != 0:
+        raise ValueError(
+            f"point count {P} must be a multiple of pt_chunk {pt_chunk}")
+    volumes, _ = lx.encode_sparse_voxels(params, batch["geom"], s.model)
+    outs = []
+    for b in range(B):
+        vols = [v[b] for v in volumes]
+        frame = _frame_info(batch, b)
+        outs.append(torch.cat([
+            lx.calculate_density(params, batch["pts"][b, p0:p0 + pt_chunk],
+                                 vols, frame, s.model, s.voxel_size)[:, 0]
+            for p0 in range(0, P, pt_chunk)]))
+    return torch.stack(outs)

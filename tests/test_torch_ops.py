@@ -368,7 +368,10 @@ def test_port_imports_no_jax():
         "[importlib.import_module(m) for m in mods]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'neuralbody_tpu' or m.startswith('neuralbody_tpu.')]\n"
-        "assert len(mods) >= 15, mods\n"
+        "assert len(mods) >= 18, mods\n"
+        "new = {p.__name__ + '.ops.' + m for m in "
+        "('conv_kernel', 'grid_sample', 'ray_ops')}\n"
+        "assert new <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=root,

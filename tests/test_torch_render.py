@@ -186,7 +186,8 @@ def test_features_and_raw_match(weights):
 
     p, _ = params_from_jax(params, stats)
     tb = to_device(batch, "cpu")
-    tfeats, _ = t_lx.encode_sparse_voxels(p, tb["geom"], ts.model)
+    tfeats, _ = t_lx.encode_sparse_voxels(p, tb["geom"], ts.model,
+                                          densify=False)
     tgeom0 = {k: v[0] for k, v in tb["geom"].items()}
     trows = {l: t_hat.expand_segments(
         tb[f"hat_seg_a{l}"][0], tb[f"hat_seg_cum{l}"][0],
@@ -209,11 +210,3 @@ def test_features_and_raw_match(weights):
     np.testing.assert_allclose(tfeat.numpy(), np.asarray(jfeat), **TOL)
     traw = t_lx.decode_raw(p, tfeat, twpts, tvdir, tframe, ts.model)
     np.testing.assert_allclose(traw.numpy(), np.asarray(jraw), **TOL)
-
-
-def test_site_interp_render_not_ported(weights):
-    batch, static = make_batch(n_rays=N_RAYS, n_verts=NV, voxel_size=VOX,
-                               seed=3)
-    _, ts = _settings(static, {"rows_caps": ()})
-    with pytest.raises(NotImplementedError, match="eval-render slice"):
-        eval_step(params_from_jax(*weights)[0], batch, ts, device="cpu")

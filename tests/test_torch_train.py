@@ -58,6 +58,7 @@ from neuralbody_tpu.utils.synthetic import make_batch
 from neuralbody_tpu_torch.models import latent_xyzc as t_lx
 from neuralbody_tpu_torch.models import sparse_conv_net as t_net
 from neuralbody_tpu_torch.ops import compositing as t_comp
+from neuralbody_tpu_torch.ops import conv_kernel
 from neuralbody_tpu_torch.ops import hat_interp as t_hat
 from neuralbody_tpu_torch.ops import hat_kernel
 from neuralbody_tpu_torch.ops import sparse_conv as t_sc
@@ -155,8 +156,11 @@ _T_CONV = {"subm": t_sc.subm_conv, "xtri": t_sc.subm_conv_xtri,
 def _t_plain_conv(kind, x, w, tabs):
     """The forward without the custom backward: autograd of the gathers."""
     if kind == "xtri":
-        return t_sc.xtri_matmul(t_sc.xtri_gather(x, *tabs), w)
-    return t_sc.sparse_conv_matmul(t_sc.gather_taps(x, tabs[0]), w)
+        lnbr, rnbr, nbr9, augl, augr = tabs
+        tri = t_sc.xtri_table(x, lnbr, rnbr, augl, augr)
+        return conv_kernel.sparse_conv_plain(
+            tri, nbr9, w.reshape(9, 3 * w.shape[1], w.shape[2]))
+    return conv_kernel.sparse_conv_plain(x, tabs[0], w)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
