@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (neuralbody_tpu_torch) on one NVIDIA
 GPU. It builds the port's CUDA kernels from the checkout (one nvcc per
-source, started together) and drives the port's three main paths at full
-width through their entry points:
+source, started together) and drives the port's main paths at full width
+through their entry points:
 
   * the forward render on the host-planned hat path (eval_step), bf16 and
     f32, held against the port's own CPU render;
@@ -16,20 +16,27 @@ width through their entry points:
     site-interpolation and the dense branch: held against the port's CPU
     render, the two branches against each other, and the site render of
     the 1024-ray batch against its hat render; then render_density_grid on
-    one chunk of points against the CPU.
+    one chunk of points against the CPU;
+  * the NeRF baseline family (D=8, W=256, 64 coarse + 128 importance
+    samples, f32): nerf_eval_step on 8192 rays in four chunks, held against
+    the port's CPU render and against four one-chunk renders; the first
+    nerf_train_step's loss and gradients against the same step on the CPU,
+    then ten steps with the perturbation on whose loss must fall.
 
-Each kernel (the hat contraction forward and backward, and the
-gather-fused sparse conv in all 17 layers of the encoder, forward and dx)
-is held against its plain PyTorch version on the inputs the main paths hand
-it, and timed beside its plain version, a library yardstick and its bound;
-the renders and the training step are timed and profiled.
+Each kernel (the hat contraction forward and backward, the gather-fused
+sparse conv in all 17 layers of the encoder, forward and dx, and the dense
+matrix product in every layer of the NeRF MLPs, forward, dx and dW) is held
+against its plain PyTorch version on the inputs the main paths hand it, and
+timed beside its plain version, a library yardstick and its bound; the
+renders and the training steps are timed and profiled.
 
     python3 chip_smoke.py
 
 The full-width batches are the reference working point: 6890 vertices,
 5 mm voxels, 64 samples per ray, 1024 rays (hat paths) or 8192 rays
 (plan-free render), encoder channels 16/32/64/128/128, decoder 352 -> 256
--> ... -> 3, random weights from a seeded torch.Generator.
+-> ... -> 3, random weights from a seeded torch.Generator. The NeRF
+baseline renders the same 8192 and 1024 rays.
 
 Every phase raises on failure. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -87,6 +94,28 @@ CONV_LAYERS = 17          # sparse convs per encode (and dx per backward)
 CONV_TOL = 1e-5   # of the layer's scale, f32 and bf16 storage alike: both
 # versions round the operands alike, so only the f32 sum's order differs
 SITE_DENSE_TOL = 1e-4     # the two branches read the same numbers (f32)
+N_IMPORTANCE = 128        # the NeRF configs: 64 coarse + 128 importance
+NERF_ALPHA_BIAS = 1.0     # on alpha_linear of both MLPs, card and CPU alike:
+# random weights leave half the samples empty, and an empty last bin makes
+# the importance sample at u = 1 jump a bin with the last bit of the cdf
+NERF_ROUNDS = 4           # timed rounds of NeRF renders and steps
+MM_TOL = 1e-5     # of the product's scale, f32 and bf16 operands alike: the
+# same products (exact in f32) summed in another order
+NERF_TOL = 1e-4   # of scale: the card's render, loss and gradient leaves
+# against the CPU's (f32; no BatchNorm and no atomics in this family)
+# The first NeRF step's gradient leaves, card against CPU, per leaf as
+# (max |err| / max |ref|, L2 of the error over the leaf's L2). The fine
+# MLP's depths come from the coarse weights through the inverse CDF, and the
+# positional encoding multiplies a depth's last bits by up to 2**9, so the
+# fine MLP's first layers are the worst conditioned: the "nerf_conditioning"
+# phase measures what one f32 ulp on the first layers' weights does to the
+# CPU step, and what the products' sum order alone does on the card.
+NERF_GRAD_TOL = (2e-3, 2e-3)
+MM_PER_MLP = 12           # dense layers of one MLP application
+DECODE_POINTS = 131072    # one chunk of the plan-free latent_xyzc render
+DECODE_LAYERS = ((352, 256), (256, 256), (256, 256), (256, 1), (256, 256),
+                 (384, 256), (346, 128), (128, 3))   # decode_raw's (K, N)
+MM_REPLACES = "tools/probes/pallas_enc_interp.py:22"
 CONV_REPLACES = ("tools/probes/pallas_gather.py:25, "
                  "tools/probes/indexed_ops.py:122, "
                  "tools/probes/pallas_dconv_scatter.py:50")
@@ -151,6 +180,19 @@ def conv_bound(torch, T, idx, W, mode):
               + 4 * (idx.numel() + W.numel())
               + 4 * idx.numel() // idx.shape[-2] * Cout)
     ops = 2 * E * Cout * named.numel()
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[mode]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def mm_bound(A, B, mode):
+    """The least time of one dense product on this card: its bytes (both
+    operands read once at their element size, the f32 output written once)
+    against its operations (2 M K N)."""
+    M, K = A.shape
+    N = B.shape[1]
+    nbytes = (M * K + K * N) * A.element_size() + 4 * M * N
+    ops = 2 * M * K * N
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[mode]
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
@@ -243,6 +285,428 @@ def leaves(tree):
     return [("", tree)]
 
 
+def nerf_family(torch, dev, card, ebatch, rbatch):
+    """The NeRF baseline's phases: the dense kernel against its plain
+    version on the operands of a real full-width step, the render and the
+    training step through their entry points against the port's CPU
+    versions, launch counts, timings and profiles. Returns the kernel's
+    entries of the `kernels` line."""
+    from neuralbody_tpu_torch.models import nerf
+    from neuralbody_tpu_torch.ops import dense_kernel as dk
+    from neuralbody_tpu_torch.renderer.volume_renderer import \
+        NerfRenderSettings
+    from neuralbody_tpu_torch.train import optimizer
+    from neuralbody_tpu_torch.train.step import (loss_and_grads,
+                                                 nerf_eval_step,
+                                                 nerf_train_step)
+    from neuralbody_tpu_torch.utils.platform import to_device
+
+    st = nerf.NerfStatic()
+    ray_keys = ("ray_o", "ray_d", "near", "far", "rgb", "ray_mask")
+    eb = {k: ebatch[k] for k in ray_keys}      # 8192 rays, numpy
+    tb = {k: rbatch[k] for k in ray_keys}      # 1024 rays
+    eb_dev, tb_dev = to_device(eb, dev), to_device(tb, dev)
+
+    def settings(chunk_rays, perturb=False):
+        return NerfRenderSettings(
+            model=st, model_fine=st, n_samples=N_SAMPLES,
+            n_importance=N_IMPORTANCE, perturb=perturb,
+            chunk_rays=chunk_rays)
+
+    def fresh_params(device=dev):
+        params, _ = nerf.init(torch.Generator().manual_seed(SEED), st, st,
+                              device=device)
+        for mlp in params.values():
+            mlp["alpha_linear"]["b"] += NERF_ALPHA_BIAS
+        return params
+
+    def reset_counts():
+        dk.MM_LAUNCHES = dk.SUM_LAUNCHES = 0
+
+    def read_counts():
+        return dk.MM_LAUNCHES, dk.SUM_LAUNCHES
+
+    # -- the kernel against its plain version on a real step's operands -----
+    # one full-width step (1024 rays: 65,536 coarse and 196,608 fine points)
+    # records what the MLPs' forwards and backwards hand the wrapper
+    calls = []
+    launch = dk.mm
+
+    def recorder(A, B):
+        calls.append((A, B))
+        return launch(A, B)
+
+    dk.mm = recorder
+    try:
+        card_step = loss_and_grads(fresh_params(), tb_dev,
+                                   settings(N_RAYS))
+        n_fwd = len(calls)
+        # the operands of a render chunk: 2048 rays
+        nerf_eval_step(fresh_params(), {k: v[:, :CHUNK_RAYS]
+                                        for k, v in eb_dev.items()},
+                       settings(CHUNK_RAYS), device=dev)
+    finally:
+        dk.mm = launch
+    torch.cuda.synchronize()
+    step_calls, chunk_calls = calls[:n_fwd], calls[n_fwd:]
+    if len(chunk_calls) != 2 * MM_PER_MLP:
+        raise AssertionError(f"a render chunk made {len(chunk_calls)} "
+                             f"products, not {2 * MM_PER_MLP}")
+
+    def kind_of(i):
+        """forward products first, then the backward's dx (g [points, N]
+        first) and dW (x^T [K, points] first)."""
+        if i < 2 * MM_PER_MLP:
+            return "fwd"
+        A = step_calls[i][0]
+        return "dw" if A.shape[0] < A.shape[1] else "dx"
+
+    kinds = [kind_of(i) for i in range(len(step_calls))]
+    n_kind = {k: kinds.count(k) for k in ("fwd", "dx", "dw")}
+    if n_kind != {"fwd": 2 * MM_PER_MLP, "dx": 2 * (MM_PER_MLP - 1),
+                  "dw": 2 * MM_PER_MLP}:
+        raise AssertionError(f"a step's products: {n_kind}")
+
+    # the layer shapes the timings below use are those the step handed over
+    def layer_of(kind, A, B):
+        """(points, K, N) of the forward layer a product belongs to."""
+        return {"fwd": (A.shape[0], A.shape[1], B.shape[1]),
+                "dx": (A.shape[0], B.shape[1], A.shape[1]),
+                "dw": (A.shape[1], A.shape[0], B.shape[1])}[kind]
+
+    for kind in n_kind:
+        seen = sorted(layer_of(kind, A, B) for (A, B), k
+                      in zip(step_calls, kinds) if k == kind)
+        want = sorted((N_RAYS * per_ray, K, N)
+                      for per_ray in (N_SAMPLES, N_SAMPLES + N_IMPORTANCE)
+                      for K, N, count in nerf_layers(kind)
+                      for _ in range(count))
+        if seen != want:
+            raise AssertionError(f"a step's {kind} products: {seen}, not "
+                                 f"{want}")
+
+    def operands(A, B, mode):
+        if mode == "f32":
+            return A, B
+        # .to keeps the strides of a dense view (the transposes of dx, dW)
+        return A.to(torch.bfloat16), B.to(torch.bfloat16)
+
+    def check(A, B, mode, what, **info):
+        a, b = operands(A, B, mode)
+        out = dk.mm(a, b)
+        ref = dk.mm_plain(a, b)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        emit(phase="kernel_vs_plain", kernel="dense_mm", what=what,
+             mode=mode, M=A.shape[0], K=A.shape[1], N=B.shape[1],
+             a_strides=list(a.stride()), b_strides=list(b.stride()),
+             splits=dk.split_plan(A.shape[0], B.shape[1], A.shape[1])[0],
+             max_abs_err=err, scale=scale, max_rel_err=err / scale
+             if scale else None, tol_rel=MM_TOL, **info)
+        if not (scale > 0 and err <= MM_TOL * scale):
+            raise AssertionError(f"dense kernel {mode} {what} {info}: err "
+                                 f"{err} at scale {scale}")
+        return err
+
+    mm_err = {}
+    for mode in ("f32", "bf16"):
+        for i, (A, B) in enumerate(step_calls):
+            key = (kinds[i], mode)
+            mm_err[key] = max(mm_err.get(key, 0.0),
+                              check(A, B, mode, kinds[i], call=i))
+        for i, (A, B) in enumerate(chunk_calls):
+            check(A, B, mode, "fwd_chunk", call=i)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pa, pb = (torch.randn((1024, 1024), generator=gen, device=dev)
+              for _ in range(2))
+    for mode in ("f32", "bf16"):
+        check(pa, pb, mode, "probe_1024")
+
+    # -- the render path: nerf_eval_step, 8192 rays in four chunks ----------
+    params = fresh_params()
+    n_chunks = EVAL_RAYS // CHUNK_RAYS
+    reset_counts()
+    ret = nerf_eval_step(params, eb_dev, settings(CHUNK_RAYS), device=dev)
+    torch.cuda.synchronize()
+    render_launches = read_counts()
+    if render_launches != (2 * MM_PER_MLP * n_chunks, 0):
+        raise AssertionError(f"the NeRF render launched {render_launches}, "
+                             f"not ({2 * MM_PER_MLP * n_chunks}, 0)")
+    maps = MAPS + ("rgb0", "disp0", "acc0", "z_std")
+    for k in maps:
+        want = (1, EVAL_RAYS, 3) if k in ("rgb_map", "rgb0") else (
+            1, EVAL_RAYS)
+        if tuple(ret[k].shape) != want or not torch.isfinite(ret[k]).all():
+            raise AssertionError(f"NeRF render {k}: shape "
+                                 f"{tuple(ret[k].shape)} or not finite")
+    # four one-chunk renders: the same kernels on the same shapes
+    for c in range(n_chunks):
+        sl = slice(c * CHUNK_RAYS, (c + 1) * CHUNK_RAYS)
+        one = nerf_eval_step(params, {k: v[:, sl] for k, v in eb_dev.items()},
+                             settings(CHUNK_RAYS), device=dev)
+        for k in maps:
+            if not torch.equal(one[k], ret[k][:, sl]):
+                raise AssertionError(f"NeRF render {k}: chunk {c} of the "
+                                     "four-chunk render differs from its "
+                                     "one-chunk render")
+    t0 = time.perf_counter()
+    ref = nerf_eval_step(to_device(params, "cpu"),
+                         {k: v[:, :CHUNK_RAYS] for k, v in eb.items()},
+                         settings(CHUNK_RAYS), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    errs = {}
+    for k in maps:
+        errs[k] = (ret[k][:, :CHUNK_RAYS].cpu() - ref[k]).abs().max().item()
+        scale = max(1.0, ref[k].abs().max().item())
+        if errs[k] > NERF_TOL * scale:
+            raise AssertionError(f"NeRF render vs the CPU, {k}: err "
+                                 f"{errs[k]} (scale {scale})")
+    emit(phase="nerf_render_vs_cpu", rays=EVAL_RAYS, chunks=n_chunks,
+         compared_rays=CHUNK_RAYS, mm_launches=render_launches[0],
+         max_abs_err=errs, tol_rel=NERF_TOL,
+         mean_acc=ret["acc_map"].mean().item(),
+         mean_acc0=ret["acc0"].mean().item(),
+         chunks_equal_one_chunk_renders=True, cpu_render_s=cpu_s)
+    del ret, ref, one
+
+    # -- the training path ----------------------------------------------------
+    # the first step's loss and every gradient leaf against the CPU step,
+    # beside the CPU step's own conditioning: the same step with the first
+    # layer's weights of both MLPs one f32 ulp apart
+    def leaf_errors(grads, ref):
+        """{leaf: (max |g - ref| / max |ref|, |g - ref|_2 / |ref|_2)}."""
+        out = {}
+        for (path, g), (_, c) in zip(leaves(grads), leaves(ref)):
+            g = g.cpu()
+            if not (torch.isfinite(g).all() and c.abs().max() > 0):
+                raise AssertionError(f"NeRF gradient {path}: not finite, or "
+                                     "the reference's is zero")
+            out[path] = ((g - c).abs().max().item() / c.abs().max().item(),
+                         (g - c).norm().item() / c.norm().item())
+        return out
+
+    def worst(errs, i):
+        path = max(errs, key=lambda k: errs[k][i])
+        return [path, errs[path][i]]
+
+    t0 = time.perf_counter()
+    tb_cpu = to_device(tb, "cpu")
+    cpu_loss, _, cpu_grads = loss_and_grads(fresh_params("cpu"), tb_cpu,
+                                            settings(N_RAYS))
+    cpu_s = time.perf_counter() - t0
+    p_ulp = fresh_params("cpu")
+    with torch.no_grad():
+        for mlp in p_ulp.values():
+            mlp["pts_linears"][0]["w"].mul_(1.0 + 2.0 ** -23)
+    _, _, ulp_grads = loss_and_grads(p_ulp, tb_cpu, settings(N_RAYS))
+    ulp = leaf_errors(ulp_grads, cpu_grads)
+    del p_ulp, ulp_grads
+    loss, _, grads = card_step
+    # the card's step with every product through the plain version: the same
+    # elementwise kernels, only the products' sums in another order
+    dk.mm = dk.mm_plain
+    try:
+        _, _, plain_grads = loss_and_grads(fresh_params(), tb_dev,
+                                           settings(N_RAYS))
+    finally:
+        dk.mm = launch
+    order = leaf_errors(grads, to_device(plain_grads, "cpu"))
+    emit(phase="nerf_conditioning", cpu_one_ulp_worst_max=worst(ulp, 0),
+         cpu_one_ulp_worst_l2=worst(ulp, 1),
+         card_kernel_vs_card_plain_worst_max=worst(order, 0),
+         card_kernel_vs_card_plain_worst_l2=worst(order, 1))
+    del plain_grads
+    errs = leaf_errors(grads, cpu_grads)
+    loss_rel = abs(loss.item() - cpu_loss.item()) / cpu_loss.item()
+    emit(phase="nerf_grads_vs_cpu", loss=loss.item(),
+         cpu_loss=cpu_loss.item(), loss_rel_err=loss_rel, leaves=len(errs),
+         worst_max_rel_err=worst(errs, 0), worst_l2_rel_err=worst(errs, 1),
+         tol_loss=NERF_TOL, tol_max_rel=NERF_GRAD_TOL[0],
+         tol_l2_rel=NERF_GRAD_TOL[1], cpu_step_s=cpu_s)
+    emit(phase="nerf_grads_per_leaf", max_rel_and_l2_rel=errs)
+    if not (loss_rel <= NERF_TOL
+            and worst(errs, 0)[1] <= NERF_GRAD_TOL[0]
+            and worst(errs, 1)[1] <= NERF_GRAD_TOL[1]):
+        raise AssertionError(f"NeRF step vs the CPU step: loss {loss_rel}, "
+                             f"worst leaves {worst(errs, 0)}, "
+                             f"{worst(errs, 1)}")
+    del card_step, cpu_grads, grads, calls, step_calls, chunk_calls
+
+    # ten steps on one batch, the perturbation and the importance draw on
+    def schedule():
+        return optimizer.make_lr_schedule(LR, "exponential", ep_iter=EP_ITER,
+                                          gamma=0.1, decay_epochs=1000)
+
+    tp = fresh_params()
+    opt = optimizer.make_optimizer(tp, schedule())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s_train = settings(N_RAYS, perturb=True)
+    per_step_want = (sum(n_kind.values()), n_kind["dw"])
+    reset_counts()
+    per_step, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        before = read_counts()
+        stats = nerf_train_step(tp, opt, tb_dev, s_train, device=dev,
+                                generator=gen)
+        losses.append(stats["loss"].item())
+        per_step.append(tuple(a - b for a, b in zip(read_counts(), before)))
+    torch.cuda.synchronize()
+    train_launches = read_counts()
+    finite = all(torch.isfinite(p).all() for _, p in leaves(tp))
+    emit(phase="nerf_train", steps=TRAIN_STEPS, lr=LR, losses=losses,
+         launches_per_step=per_step[0], launches=train_launches,
+         products_per_step=n_kind, params_finite=bool(finite))
+    if any(ps != per_step_want for ps in per_step):
+        raise AssertionError(f"NeRF steps launched {per_step}, not "
+                             f"{per_step_want} each")
+    if not (finite and all(map(math.isfinite, losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"NeRF training: losses {losses}")
+
+    # -- timings ------------------------------------------------------------
+    def time_product(A, B, mode, runs=8):
+        a, b = operands(A, B, mode)
+        k_ms = median_ms(torch, lambda: dk.mm(a, b), runs=runs, warmup=2)
+        p_ms = median_ms(torch, lambda: dk.mm_plain(a, b), runs=runs,
+                         warmup=2)
+        # the yardstick: torch.matmul on the operands as they are (a bf16
+        # product comes back in bf16)
+        l_ms = median_ms(torch, lambda: torch.matmul(a, b), runs=runs,
+                         warmup=2)
+        b_ms, by, nbytes, ops = mm_bound(a, b, mode)
+        return dict(kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                    bound_ms=b_ms, bound_by=by, bytes=nbytes, ops=ops)
+
+    # a step's 70 products, each distinct (kind, shape) timed once; and the
+    # same layers' forwards at a render chunk's point counts
+    timing = {}
+    coarse, fine = N_SAMPLES, N_SAMPLES + N_IMPORTANCE   # points per ray
+    step_points = (N_RAYS * coarse, N_RAYS * fine)
+    chunk_points = (CHUNK_RAYS * coarse, CHUNK_RAYS * fine)
+    for mode in ("f32", "bf16"):
+        tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                       bytes_share=0.0) for k in ("fwd", "dx", "dw",
+                                                  "fwd_chunk")}
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for kind, points in (("fwd", step_points), ("dx", step_points),
+                             ("dw", step_points),
+                             ("fwd_chunk", chunk_points)):
+            for M in points:
+                for K, N, count in nerf_layers(kind):
+                    x = torch.randn((M, K), generator=gen, device=dev)
+                    w = torch.randn((K, N), generator=gen, device=dev) * 0.1
+                    g = torch.randn((M, N), generator=gen, device=dev)
+                    A, B = {"fwd": (x, w), "fwd_chunk": (x, w),
+                            "dx": (g, w.t()), "dw": (x.t(), g)}[kind]
+                    t = time_product(A, B, mode)
+                    del x, w, g, A, B
+                    emit(phase="timing", kernel="dense_mm", what=kind,
+                         mode=mode, points=M, K=K, N=N, count=count,
+                         card=card, **t)
+                    for k, v in (("ms", "kernel_ms"), ("plain_ms",) * 2,
+                                 ("library_ms",) * 2, ("bound_ms",) * 2):
+                        tot[kind][k] += count * t[v]
+                    if t["bound_by"] == "bytes":
+                        tot[kind]["bytes_share"] += count * t["bound_ms"]
+        for kind, t in tot.items():
+            t["bound_by"] = ("bytes" if t.pop("bytes_share")
+                             > 0.5 * t["bound_ms"] else "operations")
+            timing[(kind, mode)] = t
+            emit(phase="timing_sum", kernel="dense_mm", what=kind, mode=mode,
+                 card=card, **t)
+        emit(phase="timing_sum", kernel="dense_mm", what="step", mode=mode,
+             products=sum(n_kind.values()), card=card,
+             **{k: sum(timing[(kind, mode)][k] for kind in
+                       ("fwd", "dx", "dw"))
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+
+    # the probe's own product, and latent_xyzc's decode layers at one chunk
+    # of the plan-free render (not routed through the kernel: the numbers a
+    # later routing decision needs)
+    for mode in ("f32", "bf16"):
+        emit(phase="timing", kernel="dense_mm", what="probe_1024", mode=mode,
+             card=card, **time_product(pa, pb, mode))
+        tot = dict(kernel_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for K, N in DECODE_LAYERS:
+            x = torch.randn((DECODE_POINTS, K), generator=gen, device=dev)
+            w = torch.randn((K, N), generator=gen, device=dev) * 0.1
+            check(x, w, mode, "decode_layer")
+            t = time_product(x, w, mode)
+            emit(phase="timing", kernel="dense_mm", what="decode_layer",
+                 mode=mode, points=DECODE_POINTS, K=K, N=N, card=card, **t)
+            for k in tot:
+                tot[k] += t[k]
+        emit(phase="timing_sum", kernel="dense_mm", what="decode_chunk",
+             mode=mode, points=DECODE_POINTS, layers=len(DECODE_LAYERS),
+             card=card, **tot)
+
+    # the render and the step, in alternating rounds
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s_eval = settings(CHUNK_RAYS)
+
+    def run(what):
+        if what == "render":
+            nerf_eval_step(params, eb_dev, s_eval, device=dev)
+        else:
+            nerf_train_step(tp, opt, tb_dev, s_train, device=dev,
+                            generator=gen)
+
+    times, _ = interleaved_ms(torch, run, ("render", "step"), NERF_ROUNDS,
+                              RENDERS_PER_ROUND)
+    for what, rays in (("render", EVAL_RAYS), ("step", N_RAYS)):
+        med = statistics.median(times[what])
+        q1, _, q3 = statistics.quantiles(times[what], n=4)
+        torch.cuda.reset_peak_memory_stats()
+        run(what)
+        torch.cuda.synchronize()
+        emit(phase=f"nerf_{what}_timing", rays=rays, ms=med, ms_q1=q1,
+             ms_q3=q3, rays_per_s=rays / med * 1e3,
+             us_per_ray=1e3 * med / rays, runs=len(times[what]),
+             dense_kernel_ms=(n_chunks * timing[("fwd_chunk", "f32")]["ms"]
+                              if what == "render" else
+                              sum(timing[(k, "f32")]["ms"]
+                                  for k in ("fwd", "dx", "dw"))),
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+        profile_step(torch, lambda: run(what), f"nerf_{what}", "f32", med)
+
+    # -- the kernel's entries: one training step's products by kind (f32, the
+    # family's type), launches from the render's and the ten steps' runs
+    names = {"fwd": "dense_mm", "dx": "dense_mm_dx", "dw": "dense_mm_dw"}
+    out = []
+    for kind, kname in names.items():
+        t = timing[(kind, "f32")]
+        n = TRAIN_STEPS * n_kind[kind]
+        if kind == "fwd":
+            n += render_launches[0]
+        out.append({
+            "name": f"{kname}[f32]", "route": "cuda",
+            "source": "neuralbody_tpu_torch/csrc/dense_mm.cu",
+            "replaces": MM_REPLACES, "launches": n,
+            "max_abs_err": mm_err[(kind, "f32")],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    if sum(k["launches"] for k in out) != (render_launches[0]
+                                           + train_launches[0]):
+        raise AssertionError("the kernel's launches by kind do not add up "
+                             f"to the counts {render_launches}, "
+                             f"{train_launches}")
+    return out
+
+
+def nerf_layers(kind):
+    """(K, N, count) of the dense products of one application of the NeRF
+    MLP (D=8, W=256, skip at 4): forward x [M, K] @ w [K, N]; dx and dW
+    are listed by the forward layer's (K, N); the first layer has no dx."""
+    layers = [(63, 256, 1), (256, 256, 7), (319, 256, 1), (256, 1, 1),
+              (283, 128, 1), (128, 3, 1)]   # 6 trunk + feature_linear
+    if kind == "dx":
+        layers = layers[1:]
+    return layers
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -251,8 +715,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from neuralbody_tpu_torch.models import latent_xyzc as lx
     from neuralbody_tpu_torch.models.sparse_conv_net import EncoderStatic
-    from neuralbody_tpu_torch.ops import (conv_kernel, hat_interp,
-                                          hat_kernel, sparse_conv)
+    from neuralbody_tpu_torch.ops import (conv_kernel, dense_kernel,
+                                          hat_interp, hat_kernel, sparse_conv)
     from neuralbody_tpu_torch.renderer.renderer import (RenderSettings,
                                                         render_density_grid)
     from neuralbody_tpu_torch.train import optimizer
@@ -273,17 +737,20 @@ def main():
     dev = torch.device("cuda")
     modes = ("bf16", "f32")
 
-    # -- 2. build: one nvcc call per source, both started together ----------
+    # -- 2. build: one nvcc call per source, all started together -----------
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         for job in [pool.submit(hat_kernel.build),
-                    pool.submit(conv_kernel.build)]:
+                    pool.submit(conv_kernel.build),
+                    pool.submit(dense_kernel.build)]:
             job.result()
     emit(phase="build",
          sources={"neuralbody_tpu_torch/csrc/hat_interp.cu":
                   ["hat_interp_level_cuda", "hat_interp_level_bwd_cuda"],
                   "neuralbody_tpu_torch/csrc/sparse_conv.cu":
-                  ["sparse_conv_cuda"]},
+                  ["sparse_conv_cuda"],
+                  "neuralbody_tpu_torch/csrc/dense_mm.cu":
+                  ["dense_mm_cuda"]},
          seconds=time.perf_counter() - t0)
 
     # -- the full-width batches and weights ---------------------------------
@@ -905,6 +1372,11 @@ def main():
              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
         profile_step(torch, lambda: one_step(mode), "train", mode, med)
 
+    # -- 6b. the NeRF baseline family and the dense product ------------------
+    del state
+    torch.cuda.empty_cache()
+    nerf_kernels = nerf_family(torch, dev, card, ebatch, rbatch)
+
     # -- 7. the kernels ---------------------------------------------------
     kernels = []
     for kind, kname, line in (("fwd", "hat_interp_level", 44),
@@ -940,6 +1412,7 @@ def main():
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"]})
+    kernels += nerf_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

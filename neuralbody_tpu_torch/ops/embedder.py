@@ -8,6 +8,12 @@ last axis (the reference embedder's interleaved layout).
 import torch
 
 
+def embed_dim(num_freqs: int, input_dims: int = 3,
+              include_input: bool = True) -> int:
+    """Width of positional_encoding's output for an input of input_dims."""
+    return input_dims * (include_input + 2 * num_freqs)
+
+
 def positional_encoding(x, num_freqs: int, include_input: bool = True):
     """x: [..., d] -> [..., d*(include_input + 2*num_freqs)]."""
     if num_freqs == 0:

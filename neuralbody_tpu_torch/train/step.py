@@ -1,9 +1,12 @@
 """Training and evaluation steps (counterpart of
 neuralbody_tpu/train/step.py).
 
-A training step is: encode, hat interpolation, decode, composite, masked
-MSE on the valid rays, backward, value-clip 40 + Adam (train/optimizer.py)
-and the BatchNorm running-stat EMA. JAX returns new parameters; here the
+A training step is: render (latent_xyzc: encode, interpolation, decode,
+composite; the NeRF baseline: coarse pass, importance resampling, fine
+pass), masked MSE on the valid rays, backward, value-clip 40 + Adam (the
+optimizer module beside this one) and the BatchNorm running-stat EMA. The
+steps are family-generic: the render function is recovered from the
+settings' type (renderer/dispatch.py). JAX returns new parameters; here the
 step updates the parameter tensors in place, PyTorch's idiom.
 """
 from __future__ import annotations
@@ -11,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..models.sparse_conv_net import update_running_stats
-from ..renderer.renderer import RenderSettings, render_rays
+from ..renderer.dispatch import get_render_fn
 from ..utils.platform import resolve_device, to_device
 from .optimizer import tree_leaves, tree_map
 
@@ -31,18 +34,24 @@ def merge_bn_stats(bn_stats, new_bn):
     return {"xyzc_net": update_running_stats(bn_stats["xyzc_net"], new_bn)}
 
 
-def loss_fn(params, batch, settings: RenderSettings, generator=None):
-    """Training render + masked MSE. Returns (loss, (ret, new_bn, stats))
-    with stats img_loss and psnr."""
-    ret, new_bn = render_rays(params, batch, settings, train=True,
-                              generator=generator)
+def loss_fn(params, batch, settings, generator=None):
+    """Training render + masked MSE, plus the NeRF baseline's auxiliary
+    coarse term when the render returns rgb0. Returns (loss, (ret, new_bn,
+    stats)) with stats img_loss, psnr and, with rgb0, img_loss0."""
+    ret, new_bn = get_render_fn(settings)(params, batch, settings,
+                                          train=True, generator=generator)
     img_loss = masked_mse(ret["rgb_map"], batch["rgb"], batch["ray_mask"])
-    stats = {"img_loss": img_loss.detach(),
-             "psnr": -10.0 * torch.log10(img_loss.detach())}
-    return img_loss, (ret, new_bn, stats)
+    loss = img_loss
+    stats = {"img_loss": img_loss.detach()}
+    if "rgb0" in ret:
+        img_loss0 = masked_mse(ret["rgb0"], batch["rgb"], batch["ray_mask"])
+        loss = loss + img_loss0
+        stats["img_loss0"] = img_loss0.detach()
+    stats["psnr"] = -10.0 * torch.log10(img_loss.detach())
+    return loss, (ret, new_bn, stats)
 
 
-def loss_and_grads(params, batch, settings: RenderSettings, generator=None):
+def loss_and_grads(params, batch, settings, generator=None):
     """The loss, loss_fn's aux and the gradient of every parameter (a tree
     of params' structure; a parameter the loss does not reach gets zeros,
     as JAX gives every leaf a gradient). params and batch are tensors on
@@ -60,19 +69,21 @@ def _or_zeros(g, p):
     return torch.zeros_like(p) if g is None else g
 
 
-def train_step(params, bn_stats, opt, batch, settings: RenderSettings,
-               device=None, generator=None):
+def train_step(params, bn_stats, opt, batch, settings, device=None,
+               generator=None):
     """One optimization step.
 
     params: the parameter dict, on `device`, updated in place; bn_stats: the
     running BN state; opt: train/optimizer.Adam over params; batch: numpy or
-    tensor batch (prepare_hat_batch fields, moved to `device`); generator:
-    the torch.Generator of the raw-noise term (needed when
-    settings.raw_noise_std > 0). `device` defaults to the card; with no card
-    present that raises.
+    tensor batch (moved to `device`); settings: a RenderSettings or
+    NerfRenderSettings; generator: the torch.Generator, on `device`, of the
+    render's random draws (the raw-noise term when settings.raw_noise_std
+    > 0; a rays-only or NeRF render's perturbation). `device` defaults to
+    the card; with no card present that raises.
 
-    Returns (new bn_stats, stats): stats holds img_loss, psnr and loss as
-    0-d tensors on the device (reading them waits for the step).
+    Returns (new bn_stats, stats): stats holds img_loss, psnr and loss (and
+    img_loss0 for a render with a coarse pass) as 0-d tensors on the device
+    (reading them waits for the step).
     """
     device = resolve_device(device)
     for p in tree_leaves(params):
@@ -88,8 +99,8 @@ def train_step(params, bn_stats, opt, batch, settings: RenderSettings,
     return merge_bn_stats(bn_stats, new_bn), stats
 
 
-def train_steps(params, bn_stats, opt, batches, settings: RenderSettings,
-                device=None, generator=None):
+def train_steps(params, bn_stats, opt, batches, settings, device=None,
+                generator=None):
     """G steps over a sequence of batches (counterpart of
     train_step_scan, as a plain loop). Returns (bn_stats, stats stacked
     over the G steps)."""
@@ -102,20 +113,44 @@ def train_steps(params, bn_stats, opt, batches, settings: RenderSettings,
                       for k in stats[0]}
 
 
-def eval_step(params, batch, settings: RenderSettings, device=None):
+def eval_step(params, batch, settings, device=None):
     """Deterministic forward render (perturb off, batch-statistics BN, as
-    the reference evaluates).
+    the reference evaluates), family-generic.
 
-    params: dict of tensors (models/latent_xyzc.init or
-    utils/transplant.params_from_jax); batch: numpy or tensor batch
-    (ops/hat_interp.prepare_hat_batch fields). Both move to `device`,
+    params: dict of tensors (a model's init or
+    utils/transplant.params_from_jax); batch: numpy or tensor batch (for
+    latent_xyzc with or without ops/hat_interp.prepare_hat_batch's fields;
+    for the NeRF baseline ray_o/ray_d/near/far). Both move to `device`,
     which defaults to the card; with no card present that raises.
 
-    Returns dict rgb_map [B,R,3], disp_map/acc_map/depth_map [B,R].
+    Returns dict rgb_map [B,R,3], disp_map/acc_map/depth_map [B,R]; a
+    NeRF render with a fine pass adds rgb0, disp0, acc0 and z_std.
     """
     device = resolve_device(device)
     params = to_device(params, device)
     batch = to_device(batch, device)
     with torch.no_grad():
-        ret, _ = render_rays(params, batch, settings)
+        ret, _ = get_render_fn(settings)(params, batch, settings)
     return ret
+
+
+# -- the NeRF-baseline steps: the same code under the JAX package's names ----
+
+def nerf_loss_fn(params, batch, settings, generator=None):
+    """loss_fn without the (empty) BN statistics: (loss, (ret, stats))."""
+    loss, (ret, _, stats) = loss_fn(params, batch, settings, generator)
+    return loss, (ret, stats)
+
+
+def nerf_train_step(params, opt, batch, settings, device=None,
+                    generator=None):
+    """One optimization step of the NeRF baseline (see train_step); the
+    family has no BN state. Returns stats."""
+    _, stats = train_step(params, {}, opt, batch, settings, device=device,
+                          generator=generator)
+    return stats
+
+
+def nerf_eval_step(params, batch, settings, device=None):
+    """Deterministic coarse + fine render (see eval_step)."""
+    return eval_step(params, batch, settings, device=device)

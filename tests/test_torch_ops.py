@@ -368,9 +368,11 @@ def test_port_imports_no_jax():
         "[importlib.import_module(m) for m in mods]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'neuralbody_tpu' or m.startswith('neuralbody_tpu.')]\n"
-        "assert len(mods) >= 18, mods\n"
-        "new = {p.__name__ + '.ops.' + m for m in "
-        "('conv_kernel', 'grid_sample', 'ray_ops')}\n"
+        "assert len(mods) >= 28, mods\n"
+        "new = {p.__name__ + '.' + m for m in "
+        "('ops.conv_kernel', 'ops.grid_sample', 'ops.ray_ops', "
+        "'ops.dense_kernel', 'ops.sample_pdf', 'models.nerf', "
+        "'renderer.volume_renderer', 'renderer.dispatch')}\n"
         "assert new <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
