@@ -23,12 +23,15 @@ through their entry points:
     nerf_train_step's loss and gradients against the same step on the CPU,
     then ten steps with the perturbation on whose loss must fall.
 
-Each kernel (the hat contraction forward and backward, the gather-fused
-sparse conv in all 17 layers of the encoder, forward and dx, and the dense
-matrix product in every layer of the NeRF MLPs, forward, dx and dW) is held
-against its plain PyTorch version on the inputs the main paths hand it, and
-timed beside its plain version, a library yardstick and its bound; the
-renders and the training steps are timed and profiled.
+Each kernel (the hat contraction forward, with its cell lookup and with
+its scan, and backward; the gather-fused sparse conv in all 17 layers of
+the encoder, forward and dx; and the dense layer in every layer of the NeRF
+MLPs: the product forward, dx and dW on its tensor-core, narrow and FMA
+routes, and `linear` with the bias and the ReLU in the epilogue, forward
+and its three gradients) is held against its plain PyTorch version on the
+inputs the main paths hand it, and timed beside its plain version, a
+library yardstick and its bound; the renders and the training steps are
+timed and profiled.
 
     python3 chip_smoke.py
 
@@ -65,6 +68,7 @@ TRAIN_ROUNDS = 4   # timed rounds of bf16 and f32 steps, interleaved
 STEPS_PER_ROUND = 6
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_OPS = {"bf16": 989e12,        # tensor cores, dense
+            "tf32": 495e12,
             "f32": 67e12}          # f32 outside the tensor cores
 KERNEL_TOL = {"f32": 1e-5,   # relative to the level's scale: sum order
               # a weight one f32 ulp apart can round to the neighbouring
@@ -188,14 +192,21 @@ def conv_bound(torch, T, idx, W, mode):
 def mm_bound(A, B, mode):
     """The least time of one dense product on this card: its bytes (both
     operands read once at their element size, the f32 output written once)
-    against its operations (2 M K N)."""
+    against its operations (2 M K N). An f32 product goes to the tensor
+    cores as three TF32 products of the operands' halves, so its operations
+    count three times at the TF32 rate; the same operations at the rate of
+    the f32 CUDA cores are returned beside it."""
     M, K = A.shape
     N = B.shape[1]
     nbytes = (M * K + K * N) * A.element_size() + 4 * M * N
     ops = 2 * M * K * N
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[mode]
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (ops / PEAK_OPS["bf16"] if mode == "bf16"
+             else 3 * ops / PEAK_OPS["tf32"])
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_fp32_cores_ms=1e3 * max(t_bytes, ops / PEAK_OPS["f32"]),
+                bytes=nbytes, ops=ops)
 
 
 def library_conv(torch, T, idx, W):
@@ -321,10 +332,15 @@ def nerf_family(torch, dev, card, ebatch, rbatch):
         return params
 
     def reset_counts():
-        dk.MM_LAUNCHES = dk.SUM_LAUNCHES = 0
+        dk.MM_LAUNCHES = dk.SUM_LAUNCHES = dk.EPILOGUE_LAUNCHES = 0
+        for route in dk.ROUTE_LAUNCHES:
+            dk.ROUTE_LAUNCHES[route] = 0
 
     def read_counts():
         return dk.MM_LAUNCHES, dk.SUM_LAUNCHES
+
+    def read_routes():
+        return dict(dk.ROUTE_LAUNCHES, epilogue=dk.EPILOGUE_LAUNCHES)
 
     # -- the kernel against its plain version on a real step's operands -----
     # one full-width step (1024 rays: 65,536 coarse and 196,608 fine points)
@@ -332,9 +348,9 @@ def nerf_family(torch, dev, card, ebatch, rbatch):
     calls = []
     launch = dk.mm
 
-    def recorder(A, B):
-        calls.append((A, B))
-        return launch(A, B)
+    def recorder(A, B, bias=None, relu=False):
+        calls.append((A, B, bias, relu))
+        return launch(A, B, bias, relu)
 
     dk.mm = recorder
     try:
@@ -375,7 +391,7 @@ def nerf_family(torch, dev, card, ebatch, rbatch):
                 "dw": (A.shape[1], A.shape[0], B.shape[1])}[kind]
 
     for kind in n_kind:
-        seen = sorted(layer_of(kind, A, B) for (A, B), k
+        seen = sorted(layer_of(kind, c[0], c[1]) for c, k
                       in zip(step_calls, kinds) if k == kind)
         want = sorted((N_RAYS * per_ray, K, N)
                       for per_ray in (N_SAMPLES, N_SAMPLES + N_IMPORTANCE)
@@ -391,32 +407,95 @@ def nerf_family(torch, dev, card, ebatch, rbatch):
         # .to keeps the strides of a dense view (the transposes of dx, dW)
         return A.to(torch.bfloat16), B.to(torch.bfloat16)
 
-    def check(A, B, mode, what, **info):
+    route_err = {}
+
+    def check(A, B, mode, what, bias=None, relu=False, **info):
+        """The wrapper as the path called it (the bias and the ReLU of a
+        forward layer in its epilogue) against the plain version."""
         a, b = operands(A, B, mode)
-        out = dk.mm(a, b)
-        ref = dk.mm_plain(a, b)
+        out = dk.mm(a, b, bias, relu)
+        ref = dk.mm_plain(a, b, bias, relu)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         scale = ref.abs().max().item()
+        route, splits, _ = dk.route_plan(a, b)
         emit(phase="kernel_vs_plain", kernel="dense_mm", what=what,
              mode=mode, M=A.shape[0], K=A.shape[1], N=B.shape[1],
              a_strides=list(a.stride()), b_strides=list(b.stride()),
-             splits=dk.split_plan(A.shape[0], B.shape[1], A.shape[1])[0],
+             route=route, splits=splits, bias=bias is not None, relu=relu,
              max_abs_err=err, scale=scale, max_rel_err=err / scale
              if scale else None, tol_rel=MM_TOL, **info)
         if not (scale > 0 and err <= MM_TOL * scale):
             raise AssertionError(f"dense kernel {mode} {what} {info}: err "
                                  f"{err} at scale {scale}")
+        route_err[route] = max(route_err.get(route, 0.0), err)
         return err
+
+    def check_linear(x, w, b, relu, what, call):
+        """`linear` under autograd against its plain version: the output
+        against `linear_plain`, and the gradients of x, w and b for one
+        cotangent against the plain products of that cotangent masked by the
+        kernel's own output (an output within rounding of 0 may fall on
+        either side of it in the two versions, and its whole cotangent with
+        it: that is the ReLU, not the kernel)."""
+        gy = torch.randn(
+            (x.shape[0], w.shape[1]), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED + call))
+        ins = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+        before = dk.MM_LAUNCHES
+        y = dk.linear(*ins, relu)
+        y.backward(gy)
+        if dk.MM_LAUNCHES != before + 3:
+            raise AssertionError(f"linear launched {dk.MM_LAUNCHES - before} "
+                                 "products, not 3")
+        y = y.detach()
+        gm = gy * (y > 0) if relu else gy
+        ref = [dk.linear_plain(x, w, b, relu), dk.mm_plain(gm, w.t()),
+               dk.mm_plain(x.t(), gm), gm.sum(0)]
+        torch.cuda.synchronize()
+        errs = {}
+        for name, o, r in zip(("out", "dx", "dw", "db"),
+                              [y] + [t.grad for t in ins], ref):
+            scale = r.abs().max().item()
+            errs[name] = (o - r).abs().max().item()
+            if not (scale > 0 and errs[name] <= MM_TOL * scale):
+                raise AssertionError(
+                    f"linear {what} call {call} {name}: err {errs[name]} at "
+                    f"scale {scale}")
+            errs[name + "_rel"] = errs[name] / scale
+        emit(phase="kernel_vs_plain", kernel="dense_linear", what=what,
+             call=call, M=x.shape[0], K=x.shape[1], N=w.shape[1], relu=relu,
+             tol_rel=MM_TOL, **errs)
+        return errs["out"]
 
     mm_err = {}
     for mode in ("f32", "bf16"):
-        for i, (A, B) in enumerate(step_calls):
+        for i, (A, B, bias, relu) in enumerate(step_calls):
             key = (kinds[i], mode)
             mm_err[key] = max(mm_err.get(key, 0.0),
-                              check(A, B, mode, kinds[i], call=i))
-        for i, (A, B) in enumerate(chunk_calls):
-            check(A, B, mode, "fwd_chunk", call=i)
+                              check(A, B, mode, kinds[i], bias, relu, call=i))
+            if bias is not None:   # the product alone, too
+                check(A, B, mode, kinds[i] + "_no_epilogue", call=i)
+        for i, (A, B, bias, relu) in enumerate(chunk_calls):
+            check(A, B, mode, "fwd_chunk", bias, relu, call=i)
+    linear_err = 0.0
+    n_relu = 0
+    for what, some in (("step", step_calls[:2 * MM_PER_MLP]),
+                       ("chunk", chunk_calls)):
+        for i, (A, B, bias, relu) in enumerate(some):
+            if bias is None:
+                raise AssertionError(f"{what} forward {i} carried no bias")
+            n_relu += relu
+            linear_err = max(linear_err,
+                             check_linear(A, B, bias, relu, what, i))
+    del some, A, B, bias
+    if n_relu != 2 * 2 * (st.depth + 1):
+        raise AssertionError(f"{n_relu} forward layers with a ReLU, not "
+                             f"{st.depth + 1} per MLP application")
+    for route in ("tf32x3", "fma", "rows", "cols"):
+        if route not in route_err:
+            raise AssertionError(f"no product of the step took the {route} "
+                                 f"route: {sorted(route_err)}")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     pa, pb = (torch.randn((1024, 1024), generator=gen, device=dev)
               for _ in range(2))
@@ -430,9 +509,18 @@ def nerf_family(torch, dev, card, ebatch, rbatch):
     ret = nerf_eval_step(params, eb_dev, settings(CHUNK_RAYS), device=dev)
     torch.cuda.synchronize()
     render_launches = read_counts()
+    render_routes = read_routes()
     if render_launches != (2 * MM_PER_MLP * n_chunks, 0):
         raise AssertionError(f"the NeRF render launched {render_launches}, "
                              f"not ({2 * MM_PER_MLP * n_chunks}, 0)")
+    # every layer's bias (and ReLU) rode in its product's launch; the alpha
+    # and rgb heads took the rows route, nothing the FMA loop
+    want_routes = dict(fma=0, tf32x3=2 * (MM_PER_MLP - 2) * n_chunks,
+                       rows=2 * 2 * n_chunks, cols=0,
+                       epilogue=2 * MM_PER_MLP * n_chunks)
+    if render_routes != want_routes:
+        raise AssertionError(f"the NeRF render's routes {render_routes}, "
+                             f"not {want_routes}")
     maps = MAPS + ("rgb0", "disp0", "acc0", "z_std")
     for k in maps:
         want = (1, EVAL_RAYS, 3) if k in ("rgb_map", "rgb0") else (
@@ -464,6 +552,7 @@ def nerf_family(torch, dev, card, ebatch, rbatch):
                                  f"{errs[k]} (scale {scale})")
     emit(phase="nerf_render_vs_cpu", rays=EVAL_RAYS, chunks=n_chunks,
          compared_rays=CHUNK_RAYS, mm_launches=render_launches[0],
+         routes=render_routes,
          max_abs_err=errs, tol_rel=NERF_TOL,
          mean_acc=ret["acc_map"].mean().item(),
          mean_acc0=ret["acc0"].mean().item(),
@@ -553,10 +642,21 @@ def nerf_family(torch, dev, card, ebatch, rbatch):
         per_step.append(tuple(a - b for a, b in zip(read_counts(), before)))
     torch.cuda.synchronize()
     train_launches = read_counts()
+    train_routes = read_routes()
     finite = all(torch.isfinite(p).all() for _, p in leaves(tp))
     emit(phase="nerf_train", steps=TRAIN_STEPS, lr=LR, losses=losses,
          launches_per_step=per_step[0], launches=train_launches,
-         products_per_step=n_kind, params_finite=bool(finite))
+         routes=train_routes, products_per_step=n_kind,
+         params_finite=bool(finite))
+    # per step: 24 forwards with an epilogue; the two heads of each MLP
+    # forward on rows and their dW on cols; their dx (K = 1, 3) on the FMA
+    # loop; everything else on the tensor cores
+    want_routes = {k: TRAIN_STEPS * v for k, v in dict(
+        fma=4, tf32x3=sum(n_kind.values()) - 12, rows=4, cols=4,
+        epilogue=n_kind["fwd"]).items()}
+    if train_routes != want_routes:
+        raise AssertionError(f"the NeRF steps' routes {train_routes}, not "
+                             f"{want_routes}")
     if any(ps != per_step_want for ps in per_step):
         raise AssertionError(f"NeRF steps launched {per_step}, not "
                              f"{per_step_want} each")
@@ -565,79 +665,131 @@ def nerf_family(torch, dev, card, ebatch, rbatch):
         raise AssertionError(f"NeRF training: losses {losses}")
 
     # -- timings ------------------------------------------------------------
-    def time_product(A, B, mode, runs=8):
+    def forced(route, fn):
+        """fn() with every f32 product on one main kernel."""
+        dk.FORCE_MAIN = route
+        try:
+            return fn()
+        finally:
+            dk.FORCE_MAIN = None
+
+    def time_product(A, B, mode, bias=None, runs=5):
+        """One product as the wrapper routes it, beside its plain version,
+        torch.matmul and its bound. f32 operands also: the same product on
+        the FMA loop (the route before the tensor cores), on the main route
+        where the wrapper picks a narrow one, and, with a bias, the layer
+        with the bias and the ReLU in the epilogue beside torch.addmm +
+        relu."""
         a, b = operands(A, B, mode)
-        k_ms = median_ms(torch, lambda: dk.mm(a, b), runs=runs, warmup=2)
-        p_ms = median_ms(torch, lambda: dk.mm_plain(a, b), runs=runs,
-                         warmup=2)
+        t = dict(route=dk.route_plan(a, b)[0])
+        t["kernel_ms"] = median_ms(torch, lambda: dk.mm(a, b), runs=runs,
+                                   warmup=2)
+        t["plain_ms"] = median_ms(torch, lambda: dk.mm_plain(a, b),
+                                  runs=runs, warmup=2)
         # the yardstick: torch.matmul on the operands as they are (a bf16
         # product comes back in bf16)
-        l_ms = median_ms(torch, lambda: torch.matmul(a, b), runs=runs,
-                         warmup=2)
-        b_ms, by, nbytes, ops = mm_bound(a, b, mode)
-        return dict(kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                    bound_ms=b_ms, bound_by=by, bytes=nbytes, ops=ops)
+        t["library_ms"] = median_ms(torch, lambda: torch.matmul(a, b),
+                                    runs=runs, warmup=2)
+        t.update(mm_bound(a, b, mode))
+        if mode == "f32":
+            t["fma_ms"] = forced("fma", lambda: median_ms(
+                torch, lambda: dk.mm(a, b), runs=runs, warmup=2))
+            if t["route"] in ("rows", "cols"):
+                t["main_route_ms"] = forced("tf32x3", lambda: median_ms(
+                    torch, lambda: dk.mm(a, b), runs=runs, warmup=2))
+            if bias is not None:
+                t["linear_ms"] = median_ms(
+                    torch, lambda: dk.mm(a, b, bias, True), runs=runs,
+                    warmup=2)
+                t["linear_plain_ms"] = median_ms(
+                    torch, lambda: dk.linear_plain(a, b, bias, True),
+                    runs=runs, warmup=2)
+                t["linear_library_ms"] = median_ms(
+                    torch, lambda: torch.relu(torch.addmm(bias, a, b)),
+                    runs=runs, warmup=2)
+        return t
 
     # a step's 70 products, each distinct (kind, shape) timed once; and the
-    # same layers' forwards at a render chunk's point counts
+    # same layers' forwards at a render chunk's point counts (f32, the
+    # family's type; bf16 operands are on no path: the step's kinds only)
     timing = {}
+    narrow_timing = {}
+    summed = ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+              "bound_fp32_cores_ms", "fma_ms", "linear_ms", "linear_plain_ms",
+              "linear_library_ms")
     coarse, fine = N_SAMPLES, N_SAMPLES + N_IMPORTANCE   # points per ray
     step_points = (N_RAYS * coarse, N_RAYS * fine)
     chunk_points = (CHUNK_RAYS * coarse, CHUNK_RAYS * fine)
     for mode in ("f32", "bf16"):
-        tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                       bytes_share=0.0) for k in ("fwd", "dx", "dw",
-                                                  "fwd_chunk")}
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        for kind, points in (("fwd", step_points), ("dx", step_points),
-                             ("dw", step_points),
-                             ("fwd_chunk", chunk_points)):
+        jobs = [("fwd", step_points), ("dx", step_points),
+                ("dw", step_points)]
+        if mode == "f32":
+            jobs.append(("fwd_chunk", chunk_points))
+        for kind, points in jobs:
+            tot = dict.fromkeys(summed, 0.0)
+            bytes_share = 0.0
             for M in points:
                 for K, N, count in nerf_layers(kind):
                     x = torch.randn((M, K), generator=gen, device=dev)
                     w = torch.randn((K, N), generator=gen, device=dev) * 0.1
                     g = torch.randn((M, N), generator=gen, device=dev)
+                    bias = (torch.randn(N, generator=gen, device=dev)
+                            if kind.startswith("fwd") else None)
                     A, B = {"fwd": (x, w), "fwd_chunk": (x, w),
                             "dx": (g, w.t()), "dw": (x.t(), g)}[kind]
-                    t = time_product(A, B, mode)
+                    t = time_product(A, B, mode, bias,
+                                     runs=5 if mode == "f32" else 3)
                     del x, w, g, A, B
                     emit(phase="timing", kernel="dense_mm", what=kind,
                          mode=mode, points=M, K=K, N=N, count=count,
                          card=card, **t)
-                    for k, v in (("ms", "kernel_ms"), ("plain_ms",) * 2,
-                                 ("library_ms",) * 2, ("bound_ms",) * 2):
-                        tot[kind][k] += count * t[v]
+                    for k in summed:
+                        tot[k] += count * t.get(k, 0.0)
                     if t["bound_by"] == "bytes":
-                        tot[kind]["bytes_share"] += count * t["bound_ms"]
-        for kind, t in tot.items():
-            t["bound_by"] = ("bytes" if t.pop("bytes_share")
-                             > 0.5 * t["bound_ms"] else "operations")
-            timing[(kind, mode)] = t
+                        bytes_share += count * t["bound_ms"]
+                    if t["route"] in ("rows", "cols") and kind != "fwd_chunk":
+                        nt = narrow_timing.setdefault(
+                            t["route"], dict.fromkeys(
+                                summed + ("main_route_ms",), 0.0))
+                        for k in nt:
+                            nt[k] += count * t.get(k, 0.0)
+            tot["ms"] = tot.pop("kernel_ms")
+            tot["bound_by"] = ("bytes" if bytes_share > 0.5 * tot["bound_ms"]
+                               else "operations")
+            timing[(kind, mode)] = tot
             emit(phase="timing_sum", kernel="dense_mm", what=kind, mode=mode,
-                 card=card, **t)
+                 card=card, **tot)
         emit(phase="timing_sum", kernel="dense_mm", what="step", mode=mode,
              products=sum(n_kind.values()), card=card,
              **{k: sum(timing[(kind, mode)][k] for kind in
                        ("fwd", "dx", "dw"))
-                for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                          "bound_fp32_cores_ms", "fma_ms")})
+    for route, nt in narrow_timing.items():
+        emit(phase="timing_sum", kernel="dense_mm", what=f"narrow_{route}",
+             mode="f32", card=card, **nt)
 
     # the probe's own product, and latent_xyzc's decode layers at one chunk
     # of the plan-free render (not routed through the kernel: the numbers a
     # later routing decision needs)
+    decode_keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                   "bound_fp32_cores_ms", "linear_ms", "linear_library_ms")
     for mode in ("f32", "bf16"):
         emit(phase="timing", kernel="dense_mm", what="probe_1024", mode=mode,
              card=card, **time_product(pa, pb, mode))
-        tot = dict(kernel_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        tot = dict.fromkeys(decode_keys, 0.0)
         gen = torch.Generator(device=dev).manual_seed(SEED)
         for K, N in DECODE_LAYERS:
             x = torch.randn((DECODE_POINTS, K), generator=gen, device=dev)
             w = torch.randn((K, N), generator=gen, device=dev) * 0.1
+            bias = torch.randn(N, generator=gen, device=dev)
             check(x, w, mode, "decode_layer")
-            t = time_product(x, w, mode)
+            t = time_product(x, w, mode, bias, runs=3)
             emit(phase="timing", kernel="dense_mm", what="decode_layer",
                  mode=mode, points=DECODE_POINTS, K=K, N=N, card=card, **t)
             for k in tot:
-                tot[k] += t[k]
+                tot[k] += t.get(k, 0.0)
         emit(phase="timing_sum", kernel="dense_mm", what="decode_chunk",
              mode=mode, points=DECODE_POINTS, layers=len(DECODE_LAYERS),
              card=card, **tot)
@@ -664,15 +816,19 @@ def nerf_family(torch, dev, card, ebatch, rbatch):
         emit(phase=f"nerf_{what}_timing", rays=rays, ms=med, ms_q1=q1,
              ms_q3=q3, rays_per_s=rays / med * 1e3,
              us_per_ray=1e3 * med / rays, runs=len(times[what]),
-             dense_kernel_ms=(n_chunks * timing[("fwd_chunk", "f32")]["ms"]
-                              if what == "render" else
-                              sum(timing[(k, "f32")]["ms"]
-                                  for k in ("fwd", "dx", "dw"))),
+             dense_kernel_ms=(
+                 n_chunks * timing[("fwd_chunk", "f32")]["linear_ms"]
+                 if what == "render" else
+                 timing[("fwd", "f32")]["linear_ms"]
+                 + sum(timing[(k, "f32")]["ms"] for k in ("dx", "dw"))),
              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
         profile_step(torch, lambda: run(what), f"nerf_{what}", "f32", med)
 
-    # -- the kernel's entries: one training step's products by kind (f32, the
-    # family's type), launches from the render's and the ten steps' runs
+    # -- the kernels' entries: one training step's products by kind (f32,
+    # the family's type), launches from the render's and the ten steps' runs.
+    # bound_ms counts an f32 product as three TF32 products on the tensor
+    # cores; bound_fp32_cores_ms is the figure of the f32 CUDA cores.
+    source = "neuralbody_tpu_torch/csrc/dense_mm.cu"
     names = {"fwd": "dense_mm", "dx": "dense_mm_dx", "dw": "dense_mm_dw"}
     out = []
     for kind, kname in names.items():
@@ -681,18 +837,43 @@ def nerf_family(torch, dev, card, ebatch, rbatch):
         if kind == "fwd":
             n += render_launches[0]
         out.append({
-            "name": f"{kname}[f32]", "route": "cuda",
-            "source": "neuralbody_tpu_torch/csrc/dense_mm.cu",
+            "name": f"{kname}[f32]", "route": "cuda", "source": source,
             "replaces": MM_REPLACES, "launches": n,
             "max_abs_err": mm_err[(kind, "f32")],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            "bound_fp32_cores_ms": t["bound_fp32_cores_ms"],
+            "fma_route_ms": t["fma_ms"]})
     if sum(k["launches"] for k in out) != (render_launches[0]
                                            + train_launches[0]):
         raise AssertionError("the kernel's launches by kind do not add up "
                              f"to the counts {render_launches}, "
                              f"{train_launches}")
+    # of those launches: the forwards as the path makes them, with the bias
+    # and the ReLU in the epilogue (library: torch.addmm + relu), and the
+    # products that took a narrow route (N = 1, 3: the two heads)
+    t = timing[("fwd", "f32")]
+    out.append({
+        "name": "dense_linear[f32]", "route": "cuda", "source": source,
+        "replaces": MM_REPLACES,
+        "launches": render_routes["epilogue"] + train_routes["epilogue"],
+        "max_abs_err": linear_err, "ms": t["linear_ms"],
+        "plain_ms": t["linear_plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["linear_library_ms"],
+        "bound_fp32_cores_ms": t["bound_fp32_cores_ms"],
+        "subset_of": "dense_mm[f32]"})
+    for route, parent in (("rows", "dense_mm[f32]"),
+                          ("cols", "dense_mm_dw[f32]")):
+        nt = narrow_timing[route]
+        out.append({
+            "name": f"dense_narrow_{route}[f32]", "route": "cuda",
+            "source": source, "replaces": MM_REPLACES,
+            "launches": render_routes[route] + train_routes[route],
+            "max_abs_err": route_err[route], "ms": nt["kernel_ms"],
+            "plain_ms": nt["plain_ms"], "bound_ms": nt["bound_ms"],
+            "bound_by": "bytes", "library_ms": nt["library_ms"],
+            "main_route_ms": nt["main_route_ms"], "subset_of": parent})
     return out
 
 
@@ -746,11 +927,13 @@ def main():
             job.result()
     emit(phase="build",
          sources={"neuralbody_tpu_torch/csrc/hat_interp.cu":
-                  ["hat_interp_level_cuda", "hat_interp_level_bwd_cuda"],
+                  ["hat_interp_level_cuda (lookup, scan)",
+                   "hat_interp_level_bwd_cuda"],
                   "neuralbody_tpu_torch/csrc/sparse_conv.cu":
                   ["sparse_conv_cuda"],
                   "neuralbody_tpu_torch/csrc/dense_mm.cu":
-                  ["dense_mm_cuda"]},
+                  ["dense_mm_cuda (tf32x3, fma, narrow rows, narrow "
+                   "columns; bias and ReLU epilogue)"]},
          seconds=time.perf_counter() - t0)
 
     # -- the full-width batches and weights ---------------------------------
@@ -1183,16 +1366,38 @@ def main():
     # -- 6. timings -----------------------------------------------------------
     timing = {}
     for mode, levels in level_inputs.items():
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        tot = dict(ms=0.0, scan_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   bound_ms=0.0)
         bound_by = set()
+        c0 = 0
+        buf = torch.empty((*levels[0][3].shape[:2],
+                           sum(lv[0].shape[1] for lv in levels)), device=dev)
         for lvl, (feats, sites, rows, pos) in enumerate(levels, 1):
             ngrp, P, _ = pos.shape
             C = feats.shape[1]
-            out = torch.empty((ngrp, P, C), device=dev)
+            # the level's column slice of the [ngrp, P, 352] buffer, as the
+            # path hands it over
+            out = buf[..., c0:c0 + C]
+            c0 += C
             k_ms = median_ms(torch, lambda: hat_kernel.hat_interp_level(
                 feats, sites, rows, pos, out=out))
+            # the same kernel finding a point's rows by its scan
+            hat_kernel.LOOKUP = False
+            try:
+                s_ms = median_ms(torch, lambda: hat_kernel.hat_interp_level(
+                    feats, sites, rows, pos, out=out))
+                scan_out = out.clone()
+            finally:
+                hat_kernel.LOOKUP = True
+            hat_kernel.hat_interp_level(feats, sites, rows, pos, out=out)
+            scan_err = (scan_out - out).abs().max().item()
+            scale = out.abs().max().item()
+            if not scan_err <= KERNEL_TOL[mode] * scale:
+                raise AssertionError(f"hat kernel {mode} level {lvl}: scan "
+                                     f"and lookup differ by {scan_err} at "
+                                     f"scale {scale}")
             p_ms = median_ms(torch, lambda: hat_kernel.hat_interp_level_plain(
-                feats, sites, rows, pos), runs=20)
+                feats, sites, rows, pos), runs=10)
             # yardstick: the contraction alone on materialized operands
             fpad = torch.cat([feats, feats.new_zeros((1, C))])
             rf = fpad[rows.long()]
@@ -1204,14 +1409,19 @@ def main():
                 hat_nonzeros(torch, sites, rows, pos), mode, 4 * ngrp * P * C)
             bound_by.add(by)
             emit(phase="timing", kernel="hat_interp_level", mode=mode,
-                 level=lvl, kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                 level=lvl, capR=rows.shape[1], C=C, kernel_ms=k_ms,
+                 scan_ms=s_ms, scan_vs_lookup_max_abs=scan_err,
+                 mean_listed_rows=(rows < feats.shape[0]).sum(1).float()
+                 .mean().item(), plain_ms=p_ms, library_ms=l_ms,
                  bound_ms=b_ms, bound_by=by, bytes=nbytes, ops=ops,
                  card=card)
-            for k, v in (("ms", k_ms), ("plain_ms", p_ms),
+            for k, v in (("ms", k_ms), ("scan_ms", s_ms), ("plain_ms", p_ms),
                          ("library_ms", l_ms), ("bound_ms", b_ms)):
                 tot[k] += v
         tot["bound_by"] = bound_by.pop() if len(bound_by) == 1 else "bytes"
         timing[("fwd", mode)] = tot
+        emit(phase="timing_sum", kernel="hat_interp_level", mode=mode,
+             levels=len(levels), card=card, **tot)
 
     for mode, levels in bwd_inputs.items():
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
@@ -1223,7 +1433,7 @@ def main():
                 grad, sites, rows, pos, dtype))
             p_ms = median_ms(torch, lambda: (
                 hat_kernel.hat_interp_level_bwd_plain(grad, sites, rows, pos,
-                                                      dtype)), runs=20)
+                                                      dtype)), runs=10)
             # yardstick: the contraction alone, hat^T @ grad per group, on a
             # materialized hat (bf16-rounded in bf16 mode) and a contiguous
             # cotangent; no scatter into the rows
@@ -1260,9 +1470,9 @@ def main():
                 k_ms = median_ms(torch, lambda: conv_kernel.sparse_conv(
                     T, idx, W), runs=15)
                 p_ms = median_ms(torch, lambda: conv_kernel.sparse_conv_plain(
-                    T, idx, W), runs=15)
+                    T, idx, W), runs=8)
                 l_ms = median_ms(torch, lambda: library_conv(torch, T, idx, W),
-                                 runs=15)
+                                 runs=8)
                 b_ms, by, nbytes, ops = conv_bound(torch, T, idx, W, mode)
                 bound_share[by] += b_ms
                 emit(phase="timing", kernel="sparse_conv", direction=kind,
@@ -1393,7 +1603,8 @@ def main():
                 "max_abs_err": (max_err if kind == "fwd" else bwd_err)[mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"]})
+                "library_ms": t["library_ms"],
+                **({"scan_ms": t["scan_ms"]} if kind == "fwd" else {})})
     # the conv kernel's forward launches: 17 per encode in every forward
     # path and in each training step; its dx launches: 17 per training step
     # (34 counted per step above)

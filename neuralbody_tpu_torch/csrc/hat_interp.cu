@@ -20,19 +20,64 @@
 //   f32 features:  exact f32 weights, f32 FMA.
 //
 // What bounds it on an H100: writing the f32 output, 118.4 MB per render
-// over the four levels at the reference working point (657 groups x 128
-// points x 352 channels x 4 bytes), ~35 us at 3.35 TB/s. The tensor-core
-// work of the dense contraction, ~10 GFLOP, is ~10 us at 989 TFLOP/s bf16.
+// over the four levels at the reference working point (658 groups x 128
+// points x 352 channels x 4 bytes), ~35 us at 3.35 TB/s. The feature tables
+// (3.4 MB in bf16) live in L2. Under 2% of the (group, point, row) weights
+// are nonzero: a point touches at most 8 rows, so the contraction is sparse
+// and its arithmetic (~0.5 GFLOP) does not count.
 //
-// Design (simple first): one block per group; a thread owns one point and
-// CPT consecutive channels, so C = 128 splits over C/CPT threads and the
-// sum stays in registers without spilling. The group's rows stream through
-// shared memory in tiles of TILE_R rows (gathered coordinates and
-// features), so neither the gathered features nor the weights ever reach
-// device memory. A row whose weight is 0 for every point of a warp costs
-// only the weight; most rows are, since a point touches at most 8 cells.
-// The output may be a column slice of a wider row (out_stride), so the
-// four levels fill one [ngrp, P, 352] buffer without a concatenation.
+// Design. The TPU kernel multiplies a dense [P, capR] hat tile into the
+// gathered rows on the matrix unit; here the zeros are never multiplied.
+//  * One block of 8 warps per group stages the group's whole row set once:
+//    the row ids, the three coordinates of each row (as floats, one array
+//    per axis) and the feature rows in their storage type, gathered with
+//    16-byte cp.async (a feature row is 64 to 512 bytes). Two barriers per
+//    block, none in the loop. A row set that does not fit 200 KB of shared
+//    memory goes in several passes, the later ones adding into the output.
+//    f32 features at C = 128 need more than the default 48 KB (80 KB at 160
+//    rows), which the launch asks for.
+//  * A warp owns a point. Its lanes find the rows with a nonzero weight,
+//    a ballot collects them (it is warp-uniform: no divergence), each
+//    weight and row is broadcast by a shuffle, and the lanes, which own
+//    C / 32 neighbouring channels each (one 2- to 16-byte shared load a
+//    row), accumulate. The weights of a point are computed once, not once
+//    per 32 channels.
+//  * The warp writes the point's C channels as one contiguous run of 128 to
+//    512 bytes (a float, float2 or float4 a lane). The output may be a
+//    column slice of a wider row (out_stride), 16-byte aligned, so the four
+//    levels fill one [ngrp, P, 352] buffer without a concatenation.
+//  * Finding the rows. "scan": the lanes evaluate the tent weight of 32
+//    staged rows at a time, up to the last row that is not a sentinel (800
+//    rows a point over the four levels; the sum runs in row order).
+//    "lookup": the sites are integer cells, so the only rows with a nonzero
+//    weight are those at floor(pos) + {0, 1}^3. The block builds a hash
+//    table from cell to staged row in shared memory (open addressing, twice
+//    as many slots as rows), and eight lanes look the eight corners of a
+//    point up, four points to a warp at once. Two staged rows with the
+//    same cell (a row listed twice) cannot be told apart by the table: the
+//    block that finds such a pair while building falls back to the scan,
+//    so the result is the same function for any input.
+//
+// Measured on an H100 80GB HBM3 at 700 W, the four levels of a full-width
+// render (C = 32 / 64 / 128 / 128, caps of 256 / 288 / 160 / 96 rows, of
+// which a group lists 42 to 68 on average): 0.097 ms with bf16 features and
+// 0.110 ms with f32 ones, 2.5x and 2.8x the bytes bound (0.038, 0.039 ms),
+// against 0.125 / 0.332 ms for torch.bmm of the contraction alone. With the
+// scan in place of the lookup: 0.113 / 0.126 ms; the lookup wins at levels
+// 1 and 2 (0.019 against 0.024 ms, 0.022 against 0.031) and ties at levels
+// 3 and 4, whose groups list fewer rows per point. Each level still takes
+// 0.019 ms or more, five times level 1's bound: a block's chain of
+// dependent loads (row id, then coordinates and features, then the table)
+// is not hidden by the 1.25 waves of blocks; one launch for the four levels
+// is untried.
+//
+// The earlier design (a thread per point and 32 channels, rows in tiles of
+// 32 through shared memory in f32, three barriers a tile) wrote 4 bytes a
+// lane to 32 different output rows per store, recomputed the weights C / 32
+// times and diverged on w != 0; it took 0.67 ms for the four levels, 17.7x
+// the bound. The dense contraction on the tensor cores (a hat tile built in
+// shared memory for mma.sync) was not built: it does the same scan and 50
+// times the arithmetic to save no bytes, and the sparse form met its aim.
 //
 // ---- backward: hat_interp_level_bwd_cuda ---------------------------------
 //
@@ -67,15 +112,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
-
-constexpr int TILE_R = 32;
-constexpr int CPT = 32;  // channels per thread; every level's C is a multiple
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // The weight as the contraction's operand: bf16-rounded in bf16 mode.
 __device__ __forceinline__ float weight_operand(float w, const float*) {
@@ -86,88 +125,302 @@ __device__ __forceinline__ float weight_operand(float w,
   return __bfloat162float(__float2bfloat16_rn(w));
 }
 
-template <typename T>
-__global__ void hat_interp_kernel(const T* __restrict__ feats,
-                                  const int* __restrict__ sites,
-                                  const int* __restrict__ rows,
-                                  const float* __restrict__ pos,
-                                  float* __restrict__ out, int P, int capR,
-                                  int capS, int C, long long out_stride) {
-  extern __shared__ float smem[];
-  float* s_feat = smem;                          // [TILE_R][C]
-  float* s_coord = smem + TILE_R * C;            // [TILE_R][3]
-  int* s_row = reinterpret_cast<int*>(s_coord + TILE_R * 3);  // [TILE_R]
+__device__ __forceinline__ float tent(float p, float s) {
+  return fmaxf(0.f, 1.f - fabsf(p - s));
+}
 
-  const long long g = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int p = tid % P;
-  const int c0 = (tid / P) * CPT;
-  const bool active = tid < P * (C / CPT);
+constexpr int FWD_THREADS = 256;
+constexpr int FWD_WARPS = FWD_THREADS / 32;
+constexpr int FWD_SMEM_BUDGET = 200 * 1024;
 
-  float px = 0.f, py = 0.f, pz = 0.f;
-  if (active) {
-    const float* pp = pos + (g * P + p) * 3;
-    px = pp[0];
-    py = pp[1];
-    pz = pp[2];
+// acc += w * f[0 .. CPL), f 4 * CPL (f32) or 2 * CPL (bf16) byte aligned
+template <int CPL>
+__device__ __forceinline__ void axpy(float (&acc)[CPL], float w,
+                                     const float* f) {
+  if constexpr (CPL == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(f);
+    acc[0] = fmaf(w, v.x, acc[0]);
+    acc[1] = fmaf(w, v.y, acc[1]);
+    acc[2] = fmaf(w, v.z, acc[2]);
+    acc[3] = fmaf(w, v.w, acc[3]);
+  } else if constexpr (CPL == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(f);
+    acc[0] = fmaf(w, v.x, acc[0]);
+    acc[1] = fmaf(w, v.y, acc[1]);
+  } else {
+    acc[0] = fmaf(w, f[0], acc[0]);
   }
-  float acc[CPT];
-#pragma unroll
-  for (int k = 0; k < CPT; ++k) acc[k] = 0.f;
-
-  const int* grow = rows + g * capR;
-  for (int r0 = 0; r0 < capR; r0 += TILE_R) {
-    const int nr = min(TILE_R, capR - r0);
-    __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < TILE_R; i += blockDim.x) {
-      const int r = i < nr ? grow[r0 + i] : capS;
-      const bool valid = r >= 0 && r < capS;
-      s_row[i] = valid ? r : -1;
-      const int* sc = sites + 3LL * (valid ? r : 0);
-      s_coord[i * 3 + 0] = valid ? static_cast<float>(sc[0]) : 1e9f;
-      s_coord[i * 3 + 1] = valid ? static_cast<float>(sc[1]) : 1e9f;
-      s_coord[i * 3 + 2] = valid ? static_cast<float>(sc[2]) : 1e9f;
-    }
-    __syncthreads();
-    for (int i = tid; i < TILE_R * C; i += blockDim.x) {
-      const int r = s_row[i / C];
-      s_feat[i] = r >= 0 ? to_f32(feats[static_cast<long long>(r) * C + i % C])
-                         : 0.f;
-    }
-    __syncthreads();
-    if (active) {
-      for (int i = 0; i < nr; ++i) {
-        if (s_row[i] < 0) continue;  // sentinel: contributes exactly 0
-        float w = fmaxf(0.f, 1.f - fabsf(px - s_coord[i * 3 + 0]));
-        w = w * fmaxf(0.f, 1.f - fabsf(py - s_coord[i * 3 + 1]));
-        w = w * fmaxf(0.f, 1.f - fabsf(pz - s_coord[i * 3 + 2]));
-        if (w != 0.f) {
-          const float wo = weight_operand(w, feats);
-          const float* f = s_feat + i * C + c0;
-#pragma unroll
-          for (int k = 0; k < CPT; ++k) acc[k] = fmaf(wo, f[k], acc[k]);
-        }
-      }
-    }
-  }
-  if (active) {
-    float* o = out + (g * P + p) * out_stride + c0;
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) o[k] = acc[k];
+}
+template <int CPL>
+__device__ __forceinline__ void axpy(float (&acc)[CPL], float w,
+                                     const __nv_bfloat16* f) {
+  if constexpr (CPL == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(f);
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    acc[0] = fmaf(w, a.x, acc[0]);
+    acc[1] = fmaf(w, a.y, acc[1]);
+    acc[2] = fmaf(w, b.x, acc[2]);
+    acc[3] = fmaf(w, b.y, acc[3]);
+  } else if constexpr (CPL == 2) {
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(f));
+    acc[0] = fmaf(w, a.x, acc[0]);
+    acc[1] = fmaf(w, a.y, acc[1]);
+  } else {
+    acc[0] = fmaf(w, __bfloat162float(f[0]), acc[0]);
   }
 }
 
-template <typename T>
-void launch(const void* feats, const void* sites, const void* rows,
-            const void* pos, void* out, int ngrp, int P, int capR, int capS,
-            int C, long long out_stride, cudaStream_t stream) {
-  const int threads = (P * (C / CPT) + 31) / 32 * 32;
-  const size_t smem = sizeof(float) * (TILE_R * C + TILE_R * 3) +
-                      sizeof(int) * TILE_R;
-  hat_interp_kernel<T><<<ngrp, threads, smem, stream>>>(
+template <int CPL>
+__device__ __forceinline__ void load_out(float (&acc)[CPL], const float* o) {
+  if constexpr (CPL == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(o);
+    acc[0] = v.x, acc[1] = v.y, acc[2] = v.z, acc[3] = v.w;
+  } else if constexpr (CPL == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(o);
+    acc[0] = v.x, acc[1] = v.y;
+  } else {
+    acc[0] = o[0];
+  }
+}
+template <int CPL>
+__device__ __forceinline__ void store_out(const float (&acc)[CPL], float* o) {
+  if constexpr (CPL == 4) {
+    *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else if constexpr (CPL == 2) {
+    *reinterpret_cast<float2*>(o) = make_float2(acc[0], acc[1]);
+  } else {
+    o[0] = acc[0];
+  }
+}
+
+__device__ __forceinline__ unsigned cell_hash(int x, int y, int z) {
+  return static_cast<unsigned>(x) * 73856093u ^
+         static_cast<unsigned>(y) * 19349663u ^
+         static_cast<unsigned>(z) * 83492791u;
+}
+
+// CPL = C / 32 channels per lane. tile_rows (a multiple of 4) rows are
+// staged per pass; table_size is a power of two >= 2 * tile_rows.
+template <typename T, int CPL>
+__global__ void __launch_bounds__(FWD_THREADS)
+hat_interp_kernel(const T* __restrict__ feats, const int* __restrict__ sites,
+                  const int* __restrict__ rows, const float* __restrict__ pos,
+                  float* __restrict__ out, int P, int capR, int capS,
+                  long long out_stride, int tile_rows, int table_size,
+                  int lookup) {
+  constexpr int C = 32 * CPL;
+  constexpr int PIECES = C * sizeof(T) / 16;  // 16-byte pieces of a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s_feat = reinterpret_cast<T*>(smem_raw);             // [tile_rows][C]
+  float* s_x = reinterpret_cast<float*>(s_feat + tile_rows * C);
+  float* s_y = s_x + tile_rows;
+  float* s_z = s_y + tile_rows;
+  int* s_row = reinterpret_cast<int*>(s_z + tile_rows);   // [tile_rows]
+  float* s_pos = reinterpret_cast<float*>(s_row + tile_rows);  // [P][3]
+  int* s_tab = reinterpret_cast<int*>(s_pos + 3 * P);     // [table_size]
+  int* s_flag = s_tab + table_size;  // [0] rows to scan, [1] duplicate cell
+
+  const long long g = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int* grow = rows + g * capR;
+  const unsigned mask = table_size - 1;
+
+  for (int i = tid; i < 3 * P; i += FWD_THREADS) s_pos[i] = pos[g * P * 3 + i];
+
+  for (int r0 = 0; r0 < capR; r0 += tile_rows) {
+    const int nr = min(tile_rows, capR - r0);
+    __syncthreads();  // the previous pass is consumed
+    if (tid < 2) s_flag[tid] = 0;
+    if (lookup)
+      for (int i = tid; i < table_size; i += FWD_THREADS) s_tab[i] = -1;
+    __syncthreads();
+    for (int i = tid; i < nr; i += FWD_THREADS) {
+      const int r = grow[r0 + i];
+      const bool valid = r >= 0 && r < capS;
+      s_row[i] = valid ? r : -1;
+      const int* sc = sites + 3LL * (valid ? r : 0);
+      s_x[i] = valid ? static_cast<float>(sc[0]) : 1e9f;
+      s_y[i] = valid ? static_cast<float>(sc[1]) : 1e9f;
+      s_z[i] = valid ? static_cast<float>(sc[2]) : 1e9f;
+      if (valid) atomicMax(&s_flag[0], i + 1);
+    }
+    __syncthreads();
+    // the feature rows, 16 bytes a copy; a sentinel's slot is never read
+    for (int i = tid; i < nr * PIECES; i += FWD_THREADS) {
+      const int r = s_row[i / PIECES];
+      if (r >= 0) {
+        const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(
+            reinterpret_cast<unsigned char*>(s_feat) + 16 * i));
+        const unsigned char* src =
+            reinterpret_cast<const unsigned char*>(feats) +
+            (static_cast<long long>(r) * PIECES + i % PIECES) * 16;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                     "l"(src));
+      }
+    }
+    if (lookup) {
+      for (int i = tid; i < nr; i += FWD_THREADS) {
+        if (s_row[i] < 0) continue;
+        const float x = s_x[i], y = s_y[i], z = s_z[i];
+        unsigned h = cell_hash(static_cast<int>(x), static_cast<int>(y),
+                               static_cast<int>(z)) & mask;
+        while (true) {
+          const int old = atomicCAS(&s_tab[h], -1, i);
+          if (old == -1) break;
+          if (s_x[old] == x && s_y[old] == y && s_z[old] == z) {
+            s_flag[1] = 1;  // two staged rows share a cell
+            break;
+          }
+          h = (h + 1) & mask;
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();
+
+    const bool first = r0 == 0;
+    if (lookup && !s_flag[1]) {
+      // eight lanes per point, four points at once
+      const int q = lane >> 3, c = lane & 7;
+      for (int pb = 4 * warp; pb < P; pb += 4 * FWD_WARPS) {
+        const int p = pb + q;
+        float w = 0.f;
+        int row = -1;
+        if (p < P) {
+          const float px = s_pos[3 * p], py = s_pos[3 * p + 1],
+                      pz = s_pos[3 * p + 2];
+          if (fabsf(px) < 1e9f && fabsf(py) < 1e9f && fabsf(pz) < 1e9f) {
+            const float cx = floorf(px) + (c & 1);
+            const float cy = floorf(py) + ((c >> 1) & 1);
+            const float cz = floorf(pz) + (c >> 2);
+            w = tent(px, cx);
+            w = w * tent(py, cy);
+            w = w * tent(pz, cz);
+            if (w != 0.f) {
+              unsigned h = cell_hash(static_cast<int>(cx), static_cast<int>(cy),
+                                     static_cast<int>(cz)) & mask;
+              while (true) {
+                const int t = s_tab[h];
+                if (t < 0) {
+                  w = 0.f;  // no staged row at this cell
+                  break;
+                }
+                if (s_x[t] == cx && s_y[t] == cy && s_z[t] == cz) {
+                  row = t;
+                  break;
+                }
+                h = (h + 1) & mask;
+              }
+              w = weight_operand(w, feats);
+            }
+          }
+        }
+        const unsigned found = __ballot_sync(0xffffffffu, w != 0.f);
+        for (int qq = 0; qq < 4 && pb + qq < P; ++qq) {
+          float* o = out + (g * P + pb + qq) * out_stride + lane * CPL;
+          float acc[CPL];
+#pragma unroll
+          for (int k = 0; k < CPL; ++k) acc[k] = 0.f;
+          if (!first) load_out<CPL>(acc, o);
+          unsigned nz = (found >> (8 * qq)) & 0xffu;
+          while (nz) {
+            const int src = 8 * qq + __ffs(nz) - 1;
+            nz &= nz - 1u;
+            const float wv = __shfl_sync(0xffffffffu, w, src);
+            const int rv = __shfl_sync(0xffffffffu, row, src);
+            axpy<CPL>(acc, wv, s_feat + rv * C + lane * CPL);
+          }
+          store_out<CPL>(acc, o);
+        }
+      }
+    } else {
+      const int n = s_flag[0];  // rows past the last valid one weigh 0
+      for (int p = warp; p < P; p += FWD_WARPS) {
+        const float px = s_pos[3 * p], py = s_pos[3 * p + 1],
+                    pz = s_pos[3 * p + 2];
+        float* o = out + (g * P + p) * out_stride + lane * CPL;
+        float acc[CPL];
+#pragma unroll
+        for (int k = 0; k < CPL; ++k) acc[k] = 0.f;
+        if (!first) load_out<CPL>(acc, o);
+        for (int i0 = 0; i0 < n; i0 += 32) {
+          const int i = i0 + lane;
+          float w = 0.f;
+          if (i < n) {
+            w = tent(px, s_x[i]);
+            w = w * tent(py, s_y[i]);
+            w = w * tent(pz, s_z[i]);
+            w = weight_operand(w, feats);
+          }
+          unsigned nz = __ballot_sync(0xffffffffu, w != 0.f);
+          while (nz) {
+            const int src = __ffs(nz) - 1;
+            nz &= nz - 1u;
+            const float wv = __shfl_sync(0xffffffffu, w, src);
+            axpy<CPL>(acc, wv, s_feat + (i0 + src) * C + lane * CPL);
+          }
+        }
+        store_out<CPL>(acc, o);
+      }
+    }
+  }
+}
+
+template <typename T, int CPL>
+int launch(const void* feats, const void* sites, const void* rows,
+           const void* pos, void* out, int ngrp, int P, int capR, int capS,
+           long long out_stride, int lookup, cudaStream_t stream) {
+  constexpr int C = 32 * CPL;
+  // per staged row: its features, three coordinates, its id, and (twice as
+  // many slots as rows, rounded up to a power of two) at most 16 bytes of
+  // the table; per block: the positions and two flags
+  const long long per_row = C * sizeof(T) + 16 + 16;
+  const long long fixed = 12LL * P + 16;
+  const long long fit = (FWD_SMEM_BUDGET - fixed) / per_row / 4 * 4;
+  if (fit < 4) return static_cast<int>(cudaErrorInvalidValue);
+  const int tile_rows =
+      static_cast<int>(min(static_cast<long long>((capR + 3) / 4 * 4), fit));
+  int table_size = 32;
+  while (table_size < 2 * tile_rows) table_size *= 2;
+  const size_t smem = static_cast<size_t>(tile_rows) * (C * sizeof(T) + 16) +
+                      12 * P + 4 * table_size + 8;
+  auto kernel = hat_interp_kernel<T, CPL>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<ngrp, FWD_THREADS, smem, stream>>>(
       static_cast<const T*>(feats), static_cast<const int*>(sites),
       static_cast<const int*>(rows), static_cast<const float*>(pos),
-      static_cast<float*>(out), P, capR, capS, C, out_stride);
+      static_cast<float*>(out), P, capR, capS, out_stride, tile_rows,
+      table_size, lookup);
+  return 0;
+}
+
+template <typename T>
+int launch_c(int C, const void* feats, const void* sites, const void* rows,
+             const void* pos, void* out, int ngrp, int P, int capR, int capS,
+             long long out_stride, int lookup, cudaStream_t stream) {
+  switch (C) {
+    case 32:
+      return launch<T, 1>(feats, sites, rows, pos, out, ngrp, P, capR, capS,
+                          out_stride, lookup, stream);
+    case 64:
+      return launch<T, 2>(feats, sites, rows, pos, out, ngrp, P, capR, capS,
+                          out_stride, lookup, stream);
+    case 128:
+      return launch<T, 4>(feats, sites, rows, pos, out, ngrp, P, capR, capS,
+                          out_stride, lookup, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 constexpr int BWD_THREADS = 256;
@@ -235,24 +488,29 @@ __global__ void hat_interp_bwd_kernel(const float* __restrict__ grad,
 
 // feats [capS, C] (bf16 if feats_bf16 else f32), sites [capS, 3] int32,
 // rows [ngrp, capR] int32, pos [ngrp, P, 3] f32 -> out rows of out_stride
-// floats, [ngrp, P, C] in the first C of each. All contiguous except out.
-// C is a multiple of CPT and P * C / CPT <= 1024.
+// floats, [ngrp, P, C] in the first C of each. All contiguous except out;
+// feats and out 16-byte aligned, out_stride a multiple of 4. C is 32, 64 or
+// 128 and P at most 4096. lookup: 1 finds a point's rows through the cell
+// table (the scan where a group lists a cell twice), 0 always scans.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int hat_interp_level_cuda(const void* feats, int feats_bf16,
                                      const void* sites, const void* rows,
                                      const void* pos, void* out, int ngrp,
                                      int P, int capR, int capS, int C,
-                                     long long out_stride, void* stream) {
-  if (C <= 0 || C % CPT != 0 || ngrp <= 0 || P <= 0 || capR <= 0 ||
-      P * (C / CPT) > 1024 || out_stride < C)
+                                     long long out_stride, int lookup,
+                                     void* stream) {
+  if (ngrp <= 0 || P <= 0 || P > 4096 || capR <= 0 || out_stride < C ||
+      out_stride % 4 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(feats) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (feats_bf16)
-    launch<__nv_bfloat16>(feats, sites, rows, pos, out, ngrp, P, capR, capS,
-                          C, out_stride, s);
-  else
-    launch<float>(feats, sites, rows, pos, out, ngrp, P, capR, capS, C,
-                  out_stride, s);
+  const int err =
+      feats_bf16 ? launch_c<__nv_bfloat16>(C, feats, sites, rows, pos, out,
+                                           ngrp, P, capR, capS, out_stride,
+                                           lookup, s)
+                 : launch_c<float>(C, feats, sites, rows, pos, out, ngrp, P,
+                                   capR, capS, out_stride, lookup, s);
+  if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,8 +3,13 @@ neuralbody_tpu/models/nerf.py): D=8, W=256, skip at layer 4, viewdir head
 W/2, separate coarse and fine MLPs. Points are dense rows [N, C]; the
 renderer chunks rays.
 
-Every dense layer is ops/dense_kernel.matmul (the hand-written product, and
-its backward) plus the bias. The family computes in f32.
+Every dense layer is one ops/dense_kernel.linear: the hand-written product
+with the bias and, in the trunk and the view branch, the ReLU in its
+epilogue; its backward is the same kernel twice (dx, dW) after one
+elementwise pass that masks the cotangent. The family computes in f32, as
+the JAX package's does (on the card the product splits each f32 operand
+into two TF32 parts for the tensor cores and sums in f32; the ops module's
+note has the error).
 
 The config-driven factories of the JAX file (`@register("network", "nerf")`
 and its siblings) come with the port of the config system and the training
@@ -16,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.dense_kernel import matmul
+from ..ops.dense_kernel import linear
 from ..ops.embedder import embed_dim, positional_encoding
 from ..utils.platform import resolve_device, to_device
 from .nn_utils import dense_init
@@ -60,14 +65,14 @@ def init(gen, st_coarse: NerfStatic, st_fine: NerfStatic | None = None,
     return to_device(params, resolve_device(device)), {}
 
 
-def _dense(layer, x):
-    return matmul(x, layer["w"]) + layer["b"]
+def _dense(layer, x, relu=False):
+    return linear(x, layer["w"], layer["b"], relu)
 
 
 def _trunk(params, input_pts, st: NerfStatic):
     h = input_pts
     for i, layer in enumerate(params["pts_linears"]):
-        h = torch.relu(_dense(layer, h))
+        h = _dense(layer, h, relu=True)
         if i in st.skips:
             h = torch.cat([input_pts, h], dim=-1)
     return h
@@ -87,6 +92,6 @@ def apply_mlp(params, pts, viewdirs, st: NerfStatic):
     alpha = _dense(params["alpha_linear"], h)
     feature = _dense(params["feature_linear"], h)
     h = torch.cat([feature, input_views], dim=-1)
-    h = torch.relu(_dense(params["views_linear"], h))
+    h = _dense(params["views_linear"], h, relu=True)
     rgb = _dense(params["rgb_linear"], h)
     return torch.cat([rgb, alpha], dim=-1)

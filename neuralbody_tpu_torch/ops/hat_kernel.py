@@ -9,7 +9,12 @@ feats[rows] and sites[rows] included, so neither the gathered rows nor the
 [ngrp, P, capR] weights reach device memory. What bounds it on an H100:
 writing the f32 output, 118.4 MB per render over the four levels at the
 reference working point (10.8 / 21.5 / 43.1 / 43.1 MB for C = 32 / 64 /
-128 / 128 at 657 groups x 128 points), ~35 us at 3.35 TB/s.
+128 / 128 at 658 groups x 128 points), ~35 us at 3.35 TB/s. Its design: a
+block stages its group's rows (coordinates and features in their storage
+type) in shared memory once, a warp owns a point, finds the at most 8 rows
+that weigh on it (through a table from integer cell to staged row when
+LOOKUP is set, else by scanning the staged coordinates), accumulates them
+with C / 32 channels a lane and writes the point's channels as one run.
 
 The backward kernel (hat_interp_level_bwd_cuda) replaces
 neuralbody_tpu/ops/pallas_hat.py:_bwd_kernel and computes the whole
@@ -37,6 +42,9 @@ from ..utils import cuda_build
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "hat_interp.cu"
 
 LAUNCHES = 0      # forward kernel launches since the last reset
+LOOKUP = True     # the forward finds a point's rows through the cell table
+# (a block falls back to the scan where its group lists a cell twice); False
+# scans always: the same function, kept to time the two against each other
 BWD_LAUNCHES = 0  # backward kernel launches (the plain paths count none)
 
 
@@ -94,7 +102,7 @@ def _kernels():
     lib = cuda_build.load("hat_interp", [SOURCE])
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fwd = lib.hat_interp_level_cuda
-    fwd.argtypes = [p, i, p, p, p, p, i, i, i, i, i, ll, p]
+    fwd.argtypes = [p, i, p, p, p, p, i, i, i, i, i, ll, i, p]
     fwd.restype = ctypes.c_int
     bwd = lib.hat_interp_level_bwd_cuda
     bwd.argtypes = [p, ll, i, p, p, p, p, i, i, i, i, i, p]
@@ -131,9 +139,14 @@ def _check(feats, sites, rows, pos, out):
     s = out.stride(1)
     if out.stride(2) != 1 or out.stride(0) != P * s:
         raise ValueError(f"out must be rows of one stride, got {out.stride()}")
-    if C % 32 or P * (C // 32) > 1024:
-        raise ValueError(f"kernel takes C % 32 == 0 and P * C / 32 <= 1024 "
-                         f"threads, got C={C}, P={P}")
+    if C not in (32, 64, 128) or P > 4096:
+        raise ValueError(f"kernel takes C % 32 == 0 up to 128 and P <= 4096, "
+                         f"got C={C}, P={P}")
+    if feats.data_ptr() % 16 or out.data_ptr() % 16 or s % 4:
+        raise ValueError(
+            f"feats and out must be 16-byte aligned and out's row stride a "
+            f"multiple of 4 floats, got offsets {feats.data_ptr() % 16}, "
+            f"{out.data_ptr() % 16} and stride {s}")
 
 
 def hat_interp_level(feats, sites, rows, pos, out=None):
@@ -146,7 +159,7 @@ def hat_interp_level(feats, sites, rows, pos, out=None):
       rows:  [ngrp, capR] int32 row lists (sentinel capS contributes 0).
       pos:   [ngrp, P, 3] f32 level-grid continuous positions.
       out:   optional [ngrp, P, C] f32 destination, possibly a column slice
-        of a wider buffer.
+        of a wider buffer (16-byte aligned, row stride a multiple of 4).
 
     Returns [ngrp, P, C] f32 (out, when given).
     """
@@ -170,7 +183,7 @@ def hat_interp_level(feats, sites, rows, pos, out=None):
         err = fn(feats.data_ptr(), int(feats.dtype == torch.bfloat16),
                  sites.data_ptr(), rows.data_ptr(), pos.data_ptr(),
                  out.data_ptr(), ngrp, P, rows.shape[1], feats.shape[0],
-                 feats.shape[1], out.stride(1),
+                 feats.shape[1], out.stride(1), int(LOOKUP),
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"hat_interp kernel launch failed: CUDA error {err}")

@@ -1,7 +1,9 @@
-"""The dense matrix product of the port (ops/dense_kernel.py) on the CPU:
-its plain version against the JAX product and against the TPU probe kernel
-it replaces, the autograd Function against jax.vjp, and the Python side of
-the kernel's wrapper (split plan, refusals).
+"""The dense layer of the port (ops/dense_kernel.py) on the CPU: its plain
+version against the JAX product and against the TPU probe kernel it
+replaces, the autograd Functions (`matmul`, and `linear` with the bias and
+the ReLU in its epilogue) against jax.vjp of the JAX package's dense layer,
+and the Python side of the kernel's wrapper (route and split plans,
+refusals).
 
 The probe (tools/probes/pallas_enc_interp.py:22-34) defines `mm` under a
 `sys.argv` branch, so it cannot be imported; `_pallas_mm` restates it, with
@@ -9,7 +11,8 @@ the shape as an argument, and runs it in interpret mode.
 
 Tolerances: 1e-5 of the output's scale in f32 (the same products, summed in
 another order). bf16 operands: exact products of the rounded operands, f32
-sums, so the same 1e-5.
+sums, so the same 1e-5. The gradients of `linear`: 1e-4 of each gradient's
+scale (f32: sum order only, over up to 200 rows).
 """
 import jax
 import jax.numpy as jnp
@@ -19,11 +22,13 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from neuralbody_tpu.models.nn_utils import dense as j_dense
 from neuralbody_tpu_torch.ops import dense_kernel as dk
 
 torch.set_num_threads(1)
 
 TOL = 1e-5
+GRAD_TOL = 1e-4
 
 # the NeRF MLP's ragged shapes (K = 63, 319, 283; N = 1, 3), small M
 RAGGED = [(37, 63, 256), (130, 319, 256), (65, 283, 128), (200, 256, 1),
@@ -188,3 +193,132 @@ def test_mm_refuses_what_the_kernel_does_not_take():
         dk.mm(a[None], b)
     with pytest.raises(ValueError):
         dk.mm(a, b.to("meta"))
+
+
+# -- linear: the bias and the ReLU in the epilogue ----------------------------
+
+@pytest.mark.parametrize("relu", [False, True], ids=["id", "relu"])
+@pytest.mark.parametrize("shape", RAGGED[:5],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_linear_matches_jax_dense(shape, relu):
+    """Output, dx, dW and db against jax.vjp of nn_utils.dense (+ relu)."""
+    M, K, N = shape
+    a, b = _operands(8, *shape)
+    rng = np.random.RandomState(9)
+    bias = rng.randn(N).astype(np.float32)
+    g = rng.randn(M, N).astype(np.float32)
+
+    def layer(x, w, bb):
+        y = j_dense({"w": w, "b": bb}, x)
+        return jax.nn.relu(y) if relu else y
+
+    y, vjp = jax.vjp(layer, jnp.asarray(a), jnp.asarray(b), jnp.asarray(bias))
+    ja, jb, jbias = vjp(jnp.asarray(g))
+    x = torch.from_numpy(a).requires_grad_()
+    w = torch.from_numpy(b).requires_grad_()
+    bt = torch.from_numpy(bias).requires_grad_()
+    out = dk.linear(x, w, bt, relu)
+    _close(out, y)
+    _close(dk.linear_plain(x, w, bt, relu), y)
+    out.backward(torch.from_numpy(g))
+    _close(x.grad, ja, GRAD_TOL)
+    _close(w.grad, jb, GRAD_TOL)
+    _close(bt.grad, jbias, GRAD_TOL)
+
+
+def test_linear_products_go_through_mm(monkeypatch):
+    """One mm forward with the bias and the ReLU in it, then dx and dw on
+    the masked cotangent through transposed views; no dx for an input that
+    needs none."""
+    calls = []
+    real = dk.mm
+
+    def spy(A, B, bias=None, relu=False):
+        calls.append((tuple(A.shape), tuple(B.shape), bias is not None, relu))
+        return real(A, B, bias, relu)
+
+    monkeypatch.setattr(dk, "mm", spy)
+    a, b = map(torch.from_numpy, _operands(10, 40, 63, 16))
+    bias = torch.zeros(16).requires_grad_()
+    w = b.clone().requires_grad_()
+    x = a.clone().requires_grad_()
+    out = dk.linear(x, w, bias, relu=True)
+    assert calls == [((40, 63), (63, 16), True, True)]
+    out.sum().backward()
+    assert calls[1:] == [((40, 16), (16, 63), False, False),
+                         ((63, 40), (40, 16), False, False)]
+    # the cotangent of ones, masked by out > 0
+    assert torch.equal(bias.grad, (out > 0).sum(0).float())
+    calls.clear()
+    dk.linear(a, w, bias).sum().backward()
+    assert calls == [((40, 63), (63, 16), True, False),
+                     ((63, 40), (40, 16), False, False)]
+    with pytest.raises(TypeError):
+        dk.linear(a.bfloat16(), b.bfloat16(), bias)
+
+
+def test_mm_epilogue_on_the_cpu():
+    a, b = map(torch.from_numpy, _operands(11, 20, 30, 3))
+    bias = torch.tensor([0.5, -100.0, 2.0])
+    ref = a.numpy() @ b.numpy() + bias.numpy()
+    _close(dk.mm(a, b, bias), ref)
+    _close(dk.mm(a, b, bias, relu=True), np.maximum(ref, 0))
+    assert (dk.mm(a, b, bias, relu=True)[:, 1] == 0).all()
+    with pytest.raises(ValueError):
+        dk.mm(a, b, bias[:2])
+    with pytest.raises(TypeError):
+        dk.mm(a, b, bias.double())
+
+
+def _meta(shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("case,want", [
+    # a trunk layer's forward, dx and dW: the tensor-core route
+    ("fwd_256", ("tf32x3", 1, 256)),
+    ("dx_256", ("tf32x3", 1, 256)),
+    ("dw_256", ("tf32x3", 131, 1504)),
+    # the alpha head (N = 1): rows forward, columns for dW, and its dx
+    # (K = 1, N = 256: bound by its output) on the fma loop
+    ("fwd_alpha", ("rows", 1, 256)),
+    ("dw_alpha", ("cols", 131, 1504)),
+    ("dx_alpha", ("fma", 1, 1)),
+    # the rgb head (128 -> 3) reads a column slice: still rows
+    ("fwd_rgb_slice", ("rows", 1, 128)),
+    ("dw_rgb", ("cols", 192, 1024)),
+    # neither stride of A is 1: the main route masks it
+    ("narrow_strided", ("tf32x3", 1, 100)),
+    ("bf16", ("fma", 1, 256)),
+])
+def test_route_plan(case, want):
+    pts = 196608
+    x, w, g = _meta((pts, 256)), _meta((256, 256)), _meta((pts, 256))
+    g1, w1 = _meta((pts, 1)), _meta((256, 1))
+    operands = {
+        "fwd_256": (x, w), "dx_256": (g, w.t()), "dw_256": (x.t(), g),
+        "fwd_alpha": (x, w1), "dw_alpha": (x.t(), g1),
+        "dx_alpha": (g1, w1.t()),
+        "fwd_rgb_slice": (_meta((pts, 283))[:, 100:228], _meta((128, 3))),
+        "dw_rgb": (_meta((pts, 128)).t(), _meta((pts, 3))),
+        "narrow_strided": (_meta((500, 200))[::2, ::2], _meta((100, 3))),
+        "bf16": (_meta((pts, 256), torch.bfloat16),
+                 _meta((256, 1), torch.bfloat16)),
+    }
+    assert dk.route_plan(*operands[case]) == want
+    route, splits, chunk = want
+    K = operands[case][0].shape[1]
+    assert splits * chunk >= K > (splits - 1) * chunk
+    if splits > 1:
+        assert chunk % dk.CHUNK == 0
+
+
+def test_route_plan_follows_the_switch(monkeypatch):
+    x, w1 = _meta((4096, 256)), _meta((256, 1))
+    monkeypatch.setattr(dk, "FORCE_MAIN", "tf32x3")
+    assert dk.route_plan(x, w1)[0] == "tf32x3"
+    assert dk.route_plan(_meta((4096, 1)), w1.t())[0] == "tf32x3"
+    monkeypatch.setattr(dk, "FORCE_MAIN", "fma")
+    assert dk.route_plan(x, w1)[0] == "fma"
+    assert dk.route_plan(x, _meta((256, 256)))[0] == "fma"
+    assert dk.route_plan(x.bfloat16(), w1.bfloat16())[0] == "fma"

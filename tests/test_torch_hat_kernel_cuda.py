@@ -1,5 +1,7 @@
 """The hat kernels (csrc/hat_interp.cu, forward and backward) against
-their plain PyTorch versions on the card. Skips where no NVIDIA GPU is
+their plain PyTorch versions on the card: the forward with its cell lookup
+and with its scan, at the working point's level shapes, with sentinel rows,
+duplicate cells, empty lists, several passes and column-slice outputs. Skips where no NVIDIA GPU is
 present; run on the card with
 `python -m pytest --noconftest tests/test_torch_hat_kernel_cuda.py -q`.
 
@@ -26,6 +28,9 @@ def dev():
     torch.backends.cuda.matmul.allow_tf32 = False
     hat_kernel.build()
     return torch.device("cuda")
+
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 
 
 def _inputs(seed, ngrp, P, capR, C, capS, dtype, dev):
@@ -58,6 +63,111 @@ def test_kernel_matches_plain(dev, dtype, shape):
     assert (out - ref).abs().max().item() <= tol * scale
 
 
+def _cell_inputs(seed, ngrp, P, capR, C, capS, dtype, dev, n_rows=None):
+    """Inputs as the planner makes them: every site its own integer cell,
+    no row twice in a group, sentinels at the end of a row list."""
+    g = torch.Generator().manual_seed(seed)
+    side = 1
+    while side ** 3 < capS:
+        side += 1
+    cells = torch.randperm(side ** 3, generator=g)[:capS]
+    sites = torch.stack([cells // side ** 2, cells // side % side,
+                         cells % side], dim=1).to(torch.int32)
+    feats = torch.randn((capS, C), generator=g).to(dtype)
+    n_rows = capR - 5 if n_rows is None else n_rows
+    rows = torch.full((ngrp, capR), capS, dtype=torch.int32)
+    for i in range(ngrp):
+        rows[i, :n_rows] = torch.randperm(capS, generator=g)[:n_rows]
+    # each point within a cell's reach of one of its group's rows
+    pick = torch.randint(0, max(n_rows, 1), (ngrp, P), generator=g)
+    near = sites[torch.gather(rows, 1, pick).clamp(max=capS - 1).long()]
+    pos = near.float() + torch.rand((ngrp, P, 3), generator=g) * 1.8 - 0.9
+    pos[:, 0] = pos[:, 0].round()          # a point on a cell
+    return [t.to(dev) for t in (feats, sites, rows, pos)]
+
+
+def _fwd_close(args, dtype, out=None):
+    got = hat_kernel.hat_interp_level(*args, out=out)
+    torch.cuda.synchronize()
+    ref = hat_kernel.hat_interp_level_plain(*args)
+    scale = ref.abs().max().item()
+    assert scale > 0 and got.shape == ref.shape
+    assert (got - ref).abs().max().item() <= TOL[dtype] * scale
+    return got, ref
+
+
+# (capR, C, capS) of the four levels at the reference working point (658
+# groups of 128 points); f32 at (160, 128) stages 80 KB of features
+LEVELS = [(256, 32, 16128), (288, 64, 9984), (160, 128, 3072),
+          (96, 128, 1024)]
+
+
+@pytest.mark.parametrize("lookup", [True, False], ids=["lookup", "scan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("level", LEVELS)
+def test_forward_at_the_working_point(dev, monkeypatch, level, dtype, lookup):
+    capR, C, capS = level
+    monkeypatch.setattr(hat_kernel, "LOOKUP", lookup)
+    args = _cell_inputs(10, 9, 128, capR, C, capS, dtype, dev)
+    _, ref = _fwd_close(args, dtype)
+    # every point is in reach of a listed row
+    assert (ref.abs().sum(-1) > 0).float().mean().item() > 0.9
+
+
+@pytest.mark.parametrize("lookup", [True, False], ids=["lookup", "scan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_with_duplicate_cells(dev, monkeypatch, dtype, lookup):
+    """Rows listed twice and sites that share a cell: the lookup's blocks
+    fall back to the scan, and both count every listed row."""
+    monkeypatch.setattr(hat_kernel, "LOOKUP", lookup)
+    args = _inputs(11, 6, 128, 200, 64, 150, dtype, dev)
+    assert any(len(set(r.tolist())) < r.numel() for r in args[2])
+    _fwd_close(args, dtype)
+
+
+@pytest.mark.parametrize("lookup", [True, False], ids=["lookup", "scan"])
+def test_forward_sentinel_rows_and_empty_lists(dev, monkeypatch, lookup):
+    monkeypatch.setattr(hat_kernel, "LOOKUP", lookup)
+    feats, sites, rows, pos = _cell_inputs(12, 4, 128, 64, 64, 400,
+                                           torch.bfloat16, dev)
+    rows[1] = 400                           # a group of only sentinel rows
+    rows[2, 3:] = 400
+    got, _ = _fwd_close((feats, sites, rows, pos), torch.bfloat16)
+    assert (got[1] == 0).all()
+    before = hat_kernel.LAUNCHES
+    out = torch.full((4, 128, 64), 3.0, device=dev)
+    hat_kernel.hat_interp_level(feats, sites, rows[:, :0], pos, out=out)
+    assert (out == 0).all() and hat_kernel.LAUNCHES == before   # capR = 0
+
+
+@pytest.mark.parametrize("lookup", [True, False], ids=["lookup", "scan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_in_several_passes(dev, monkeypatch, dtype, lookup):
+    """More rows than 200 KB of shared memory hold: later passes add into
+    the output."""
+    monkeypatch.setattr(hat_kernel, "LOOKUP", lookup)
+    args = _cell_inputs(13, 3, 64, 900, 128, 2000, dtype, dev)
+    _fwd_close(args, dtype)
+
+
+def test_forward_ragged_point_counts(dev):
+    for P in (1, 3, 33, 130):
+        _fwd_close(_cell_inputs(14, 2, P, 40, 32, 100, torch.float32, dev),
+                   torch.float32)
+
+
+def test_kernel_refuses_misaligned_out(dev):
+    args = _inputs(15, 2, 16, 16, 32, 20, torch.float32, dev)
+    buf = torch.zeros((2, 16, 354), device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        hat_kernel.hat_interp_level(*args, out=buf[..., 2:34])
+    with pytest.raises(ValueError, match="aligned"):
+        hat_kernel.hat_interp_level(*args, out=buf[..., 0:32])  # stride 354
+    with pytest.raises(ValueError, match="C % 32"):
+        hat_kernel.hat_interp_level(
+            torch.zeros((20, 96), device=dev), *args[1:])
+
+
 def test_kernel_writes_column_slice(dev):
     args = _inputs(1, 4, 64, 64, 64, 100, torch.bfloat16, dev)
     buf = torch.full((4, 64, 352), -7.0, device=dev)
@@ -81,9 +191,6 @@ def test_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         hat_kernel.hat_interp_level(feats.t().contiguous().t(), sites, rows,
                                     pos)
-
-
-TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 
 
 def _bwd_check(got, args, dtype):

@@ -435,3 +435,65 @@ def test_nerf_steps_default_to_the_card():
         t_step.nerf_eval_step(tparams, _rays(32), ts)
     with pytest.raises(RuntimeError, match="CUDA"):
         t_step.nerf_train_step(tparams, opt, _rays(32), ts)
+
+
+# -- the MLPs through ops/dense_kernel.linear --------------------------------
+
+@pytest.mark.parametrize("st_kw", [{}, NARROW], ids=["D8W256", "narrow"])
+def test_mlp_layers_go_through_linear(st_kw, monkeypatch):
+    """Every dense layer of an MLP application is one product with its bias
+    in the epilogue, and the trunk's and the view branch's also with their
+    ReLU: no separate bias or ReLU pass."""
+    from neuralbody_tpu_torch.ops import dense_kernel as dk
+    calls = []
+    real = dk.mm
+
+    def spy(A, B, bias=None, relu=False):
+        calls.append((tuple(B.shape), bias is not None, relu))
+        return real(A, B, bias, relu)
+
+    monkeypatch.setattr(dk, "mm", spy)
+    _, tparams = _weights(st_kw, fine=False)
+    tst = t_nerf.NerfStatic(**st_kw)
+    rng = np.random.RandomState(4)
+    pts = torch.from_numpy(rng.uniform(-1, 1, (50, 3)).astype(np.float32))
+    t_nerf.apply_mlp(tparams["coarse"], pts, pts, tst)
+    W = tst.width
+    assert len(calls) == tst.depth + 4 and all(c[1] for c in calls)
+    assert [c[2] for c in calls] == [True] * tst.depth + [False, False, True,
+                                                          False]
+    assert [c[0] for c in calls[tst.depth:]] == [(W, 1), (W, W),
+                                                 (W + 27, W // 2),
+                                                 (W // 2, 3)]
+    calls.clear()
+    t_nerf.apply_density(tparams["coarse"], pts, tst)
+    assert len(calls) == tst.depth + 1 and not calls[-1][2]
+
+
+@pytest.mark.parametrize("st_kw", [{}, NARROW], ids=["D8W256", "narrow"])
+def test_mlp_grads_match_jax(st_kw):
+    """The gradient of every parameter leaf through linear's backward (the
+    masked cotangent, dx, dW, db) against jax.grad of the JAX MLP."""
+    jparams, tparams = _weights(st_kw, fine=False)
+    jst, tst = j_nerf.NerfStatic(**st_kw), t_nerf.NerfStatic(**st_kw)
+    rng = np.random.RandomState(5)
+    pts = rng.uniform(-1.5, 1.5, (120, 3)).astype(np.float32)
+    dirs = rng.randn(120, 3).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    cot = rng.randn(120, 4).astype(np.float32)
+
+    def j_loss(p):
+        return jnp.sum(j_nerf.apply_mlp(p, jnp.asarray(pts),
+                                        jnp.asarray(dirs), jst)
+                       * jnp.asarray(cot))
+
+    ref = jax.grad(j_loss)(jparams["coarse"])
+    leaves = [x for _, x in _flat(tparams["coarse"])]
+    for x in leaves:
+        x.requires_grad_()
+    raw = t_nerf.apply_mlp(tparams["coarse"], torch.from_numpy(pts),
+                           torch.from_numpy(dirs), tst)
+    grads = torch.autograd.grad((raw * torch.from_numpy(cot)).sum(), leaves)
+    for (path, j), g in zip(_flat(ref), grads):
+        j = _np(j)
+        assert np.abs(_np(g) - j).max() <= GRAD_TOL * np.abs(j).max(), path
