@@ -23,15 +23,16 @@ through their entry points:
     nerf_train_step's loss and gradients against the same step on the CPU,
     then ten steps with the perturbation on whose loss must fall.
 
-Each kernel (the hat contraction forward, with its cell lookup and with
-its scan, and backward; the gather-fused sparse conv in all 17 layers of
-the encoder, forward and dx; and the dense layer in every layer of the NeRF
-MLPs: the product forward, dx and dW on its tensor-core, narrow and FMA
+Each kernel (the hat contraction forward and backward, each with its cell
+lookup and with its scan; the gather-fused sparse conv on the tensor cores
+in all 17 layers of the encoder, forward and dx, timed beside the conv
+weight gradient; and the dense layer in every layer of the NeRF MLPs: the product forward, dx and dW on its tensor-core, narrow and FMA
 routes, and `linear` with the bias and the ReLU in the epilogue, forward
 and its three gradients) is held against its plain PyTorch version on the
 inputs the main paths hand it, and timed beside its plain version, a
 library yardstick and its bound; the renders and the training steps are
-timed and profiled.
+timed and profiled. The conv library's machine code is read with cuobjdump
+to show that both modes of the conv issue tensor-core (HMMA) instructions.
 
     python3 chip_smoke.py
 
@@ -174,19 +175,58 @@ def hat_bound(torch, rows, pos, C, capS, elem_bytes, nnz, mode, nbytes_out):
 def conv_bound(torch, T, idx, W, mode):
     """The least time of one sparse conv on this card: its bytes (each table
     row some index names read once at the table's element size, the index
-    table and the f32 weights read, the f32 output written) against its
-    operations (2 E Cout per index that names a row; the zero-row entries
-    need none)."""
+    table and the weights, in the table's type, read, the f32 output
+    written) against its operations (2 E Cout per index that names a row;
+    the zero-row entries need none). bf16 operands run on the tensor cores;
+    f32 operands go to them as three TF32 products of the operands' halves,
+    so their operations count three times at the TF32 rate, and the same
+    operations at the f32 CUDA cores' rate are returned beside it."""
     n_rows, E = T.shape[-2:]
     Cout = W.shape[2]
     named = idx[idx < n_rows]
     nbytes = (torch.unique(named).numel() * E * T.element_size()
-              + 4 * (idx.numel() + W.numel())
+              + 4 * idx.numel() + W.numel() * T.element_size()
               + 4 * idx.numel() // idx.shape[-2] * Cout)
     ops = 2 * E * Cout * named.numel()
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[mode]
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (ops / PEAK_OPS["bf16"] if mode == "bf16"
+             else 3 * ops / PEAK_OPS["tf32"])
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_fp32_cores_ms=1e3 * max(t_bytes, ops / PEAK_OPS["f32"]),
+                bytes=nbytes, ops=ops)
+
+
+def conv_tiles(torch, idx, n_rows, tile):
+    """What the conv kernel's tiles of `tile` sites see in an index table:
+    the share of (tile, tap) pairs that no site of the tile names (skipped
+    whole), and the share of the entries of the other pairs that name a row
+    (the rest the tensor cores multiply as zeros)."""
+    K, S = idx.shape[-2:]
+    named = (idx < n_rows).reshape(-1, K, S).float()
+    named = torch.nn.functional.pad(named, (0, -S % tile)).reshape(
+        named.shape[0], K, -1, tile)
+    live = named.amax(-1)
+    return (1.0 - live.mean().item(),
+            named.sum().item() / max(1.0, tile * live.sum().item()))
+
+
+def sass_counts(path, kernel):
+    """{function: HMMA instructions} of the functions of a built library
+    whose name holds `kernel`, read with cuobjdump -sass."""
+    from neuralbody_tpu_torch.utils import cuda_build
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if kernel in fn:
+                counts[fn] = 0
+        elif fn in counts and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def mm_bound(A, B, mode):
@@ -903,6 +943,7 @@ def main():
     from neuralbody_tpu_torch.train import optimizer
     from neuralbody_tpu_torch.train.step import (eval_step, loss_and_grads,
                                                  train_step)
+    from neuralbody_tpu_torch.utils import cuda_build
     from neuralbody_tpu_torch.utils.platform import to_device
     from neuralbody_tpu_torch.utils.synthetic import make_batch
 
@@ -928,13 +969,27 @@ def main():
     emit(phase="build",
          sources={"neuralbody_tpu_torch/csrc/hat_interp.cu":
                   ["hat_interp_level_cuda (lookup, scan)",
-                   "hat_interp_level_bwd_cuda"],
+                   "hat_interp_level_bwd_cuda (lookup, scan)"],
                   "neuralbody_tpu_torch/csrc/sparse_conv.cu":
-                  ["sparse_conv_cuda"],
+                  ["sparse_conv_cuda (tensor cores: bf16 mma.sync and "
+                   "tf32x3, the reduction split over the blocks of a "
+                   "cluster)"],
                   "neuralbody_tpu_torch/csrc/dense_mm.cu":
                   ["dense_mm_cuda (tf32x3, fma, narrow rows, narrow "
                    "columns; bias and ReLU epilogue)"]},
          seconds=time.perf_counter() - t0)
+    # the conv kernel's machine code: tensor-core instructions in both modes
+    hmma = {}
+    for fn, n in sass_counts(cuda_build.library_path(
+            "sparse_conv", [conv_kernel.SOURCE]),
+            "sparse_conv_mma_kernel").items():
+        cout = fn.split("Li")[1].split("E")[0]
+        hmma[f"{'bf16' if 'nv_bfloat16' in fn else 'f32'}[Cout={cout}]"] = n
+    emit(phase="sass", library="sparse_conv", kernel="sparse_conv_mma_kernel",
+         hmma_instructions=hmma)
+    if (len(hmma) != 2 * len(conv_kernel._COUTS)
+            or not all(hmma.values())):
+        raise AssertionError(f"conv kernel's HMMA instructions: {hmma}")
 
     # -- the full-width batches and weights ---------------------------------
     t0 = time.perf_counter()
@@ -1024,6 +1079,7 @@ def main():
 
     card_grads = {}
     conv_inputs = {mode: {} for mode in modes}
+    step_fwd_convs = {}  # the training step's forward convs (dW's inputs)
     hat_interp.hat_interp_level = recorder
     sparse_conv.sparse_conv = conv_recorder
     try:
@@ -1043,6 +1099,7 @@ def main():
                     f"{mode} step: {len(conv_calls)} convs, not "
                     f"{CONV_LAYERS} forward and {CONV_LAYERS} dx")
             conv_inputs[mode]["dx"] = conv_calls[CONV_LAYERS:]
+            step_fwd_convs[mode] = conv_calls[:CONV_LAYERS]
     finally:
         hat_interp.hat_interp_level = launch
         hat_interp.hat_interp_level_bwd = bwd_launch
@@ -1424,13 +1481,33 @@ def main():
              levels=len(levels), card=card, **tot)
 
     for mode, levels in bwd_inputs.items():
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        tot = dict(ms=0.0, scan_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   bound_ms=0.0)
         bound_by = set()
         for lvl, (grad, sites, rows, pos, dtype) in enumerate(levels, 1):
             ngrp, P, C = grad.shape
             capS = sites.shape[0]
             k_ms = median_ms(torch, lambda: hat_kernel.hat_interp_level_bwd(
                 grad, sites, rows, pos, dtype))
+            # the same kernel finding a point's rows by its scan
+            hat_kernel.LOOKUP = False
+            try:
+                s_ms = median_ms(torch, lambda: (
+                    hat_kernel.hat_interp_level_bwd(grad, sites, rows, pos,
+                                                    dtype)))
+                scan_out = hat_kernel.hat_interp_level_bwd(grad, sites, rows,
+                                                           pos, dtype)
+            finally:
+                hat_kernel.LOOKUP = True
+            out = hat_kernel.hat_interp_level_bwd(grad, sites, rows, pos,
+                                                  dtype)
+            scan_err = (scan_out - out).abs().max().item()
+            scale = out.abs().max().item()
+            if not scan_err <= KERNEL_TOL[mode] * scale:
+                raise AssertionError(f"hat backward {mode} level {lvl}: scan "
+                                     f"and lookup differ by {scan_err} at "
+                                     f"scale {scale}")
+            del scan_out, out
             p_ms = median_ms(torch, lambda: (
                 hat_kernel.hat_interp_level_bwd_plain(grad, sites, rows, pos,
                                                       dtype)), runs=10)
@@ -1451,20 +1528,30 @@ def main():
                 4 * (ngrp * P * C + capS * C))
             bound_by.add(by)
             emit(phase="timing", kernel="hat_interp_level_bwd", mode=mode,
-                 level=lvl, kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                 bound_ms=b_ms, bound_by=by, bytes=nbytes, ops=ops,
-                 card=card)
-            for k, v in (("ms", k_ms), ("plain_ms", p_ms),
+                 level=lvl, capR=rows.shape[1], C=C, kernel_ms=k_ms,
+                 scan_ms=s_ms, scan_vs_lookup_max_abs=scan_err,
+                 plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=by,
+                 bytes=nbytes, ops=ops, card=card)
+            for k, v in (("ms", k_ms), ("scan_ms", s_ms), ("plain_ms", p_ms),
                          ("library_ms", l_ms), ("bound_ms", b_ms)):
                 tot[k] += v
         tot["bound_by"] = bound_by.pop() if len(bound_by) == 1 else "bytes"
         timing[("bwd", mode)] = tot
+        emit(phase="timing_sum", kernel="hat_interp_level_bwd", mode=mode,
+             levels=len(levels), card=card, **tot)
 
     # the conv kernel, per layer, forward and dx; the sums are one encode's
-    # (and one backward's) convs
+    # (and one backward's) convs. With dx goes the rest of the convs'
+    # backward as the port computes it, outside any kernel: the weight
+    # gradient, a gather of the cotangent's table ([K, S, E]) and an einsum
+    # against the forward conv's input
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for mode in modes:
         for kind, layers in conv_inputs[mode].items():
-            tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+            tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                       bound_ms=0.0, bound_fp32_cores_ms=0.0)
+            if kind == "dx":
+                tot["weight_grad_ms"] = 0.0
             bound_share = {"bytes": 0.0, "operations": 0.0}
             for layer, (T, idx, W) in enumerate(layers):
                 k_ms = median_ms(torch, lambda: conv_kernel.sparse_conv(
@@ -1473,15 +1560,40 @@ def main():
                     T, idx, W), runs=8)
                 l_ms = median_ms(torch, lambda: library_conv(torch, T, idx, W),
                                  runs=8)
-                b_ms, by, nbytes, ops = conv_bound(torch, T, idx, W, mode)
-                bound_share[by] += b_ms
+                bound = conv_bound(torch, T, idx, W, mode)
+                bound_share[bound["bound_by"]] += bound["bound_ms"]
+                skipped, named = conv_tiles(torch, idx, T.shape[-2],
+                                            conv_kernel.TILE_SITES)
+                extra = {}
+                if kind == "dx":
+                    # the backward walks the layers in reverse; a packed
+                    # conv's input is the middle third of its table's rows
+                    Tf, idx_f, _ = step_fwd_convs[mode][CONV_LAYERS - 1 - layer]
+                    S_in = idx.shape[-1]
+                    x = (Tf if idx_f.shape[-2] == 27 else
+                         Tf[..., :S_in, Tf.shape[-1] // 3:
+                            2 * Tf.shape[-1] // 3])
+                    if x.shape[-2] != S_in or idx_f.shape[-2] != idx.shape[-2]:
+                        raise AssertionError(f"{mode} dW of layer {layer}: x "
+                                             f"{tuple(x.shape)}, S {S_in}")
+                    extra["weight_grad_ms"] = median_ms(
+                        torch, lambda: sparse_conv._weight_grad(
+                            x, conv_kernel.gather_rows(T, idx)), runs=8)
+                    tot["weight_grad_ms"] += extra["weight_grad_ms"]
                 emit(phase="timing", kernel="sparse_conv", direction=kind,
                      mode=mode, layer=layer, E=T.shape[-1], K=idx.shape[-2],
-                     S=idx.shape[-1], Cout=W.shape[2], kernel_ms=k_ms,
-                     plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                     bound_by=by, bytes=nbytes, ops=ops, card=card)
+                     S=idx.shape[-1], Cout=W.shape[2],
+                     splits=conv_kernel.split_plan(
+                         T.shape[0] if T.dim() == 3 else 1, idx.shape[-1],
+                         idx.shape[-2], T.shape[-1], T.dtype, sms),
+                     taps_skipped=skipped, named_share=named,
+                     kernel_ms=k_ms, plain_ms=p_ms,
+                     library_ms=l_ms, **bound, **extra, card=card)
                 for k, v in (("ms", k_ms), ("plain_ms", p_ms),
-                             ("library_ms", l_ms), ("bound_ms", b_ms)):
+                             ("library_ms", l_ms),
+                             ("bound_ms", bound["bound_ms"]),
+                             ("bound_fp32_cores_ms",
+                              bound["bound_fp32_cores_ms"])):
                     tot[k] += v
             tot["bound_by"] = max(bound_share, key=bound_share.get)
             timing[(f"conv_{kind}", mode)] = tot
@@ -1578,7 +1690,9 @@ def main():
              hat_fwd_ms=timing[("fwd", mode)]["ms"],
              hat_bwd_ms=timing[("bwd", mode)]["ms"],
              conv_fwd_ms=timing[("conv_fwd", mode)]["ms"],
-             conv_dx_ms=timing[("conv_dx", mode)]["ms"], runs=len(times),
+             conv_dx_ms=timing[("conv_dx", mode)]["ms"],
+             conv_weight_grad_ms=timing[("conv_dx", mode)]["weight_grad_ms"],
+             runs=len(times),
              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
         profile_step(torch, lambda: one_step(mode), "train", mode, med)
 
@@ -1603,8 +1717,7 @@ def main():
                 "max_abs_err": (max_err if kind == "fwd" else bwd_err)[mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"],
-                **({"scan_ms": t["scan_ms"]} if kind == "fwd" else {})})
+                "library_ms": t["library_ms"], "scan_ms": t["scan_ms"]})
     # the conv kernel's forward launches: 17 per encode in every forward
     # path and in each training step; its dx launches: 17 per training step
     # (34 counted per step above)
@@ -1622,7 +1735,8 @@ def main():
                 "max_abs_err": conv_err[(kind, mode)],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"]})
+                "library_ms": t["library_ms"],
+                "bound_fp32_cores_ms": t["bound_fp32_cores_ms"]})
     kernels += nerf_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

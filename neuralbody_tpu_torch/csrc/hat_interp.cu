@@ -92,23 +92,41 @@
 // _bwd_kernel does; exact f32 w in f32 mode). Sentinel and out-of-range
 // rows are skipped: in the reference they scatter into the dropped pad row.
 // Neither the gathered d_rf nor the [ngrp, P, capR] weights reach device
-// memory. Rows repeat across groups, so each (row, 32 channels) sum lands
-// with one coalesced run of 32 float atomicAdds; their order changes from
-// run to run, the only nondeterminism (f32 rounding of the sum).
+// memory. Rows repeat across groups, so each row's sum lands in d_feats
+// through float atomics; their order changes from run to run, the only
+// nondeterminism (f32 rounding of the sum).
 //
 // What bounds it on an H100: reading the f32 cotangent, 118.4 MB per step
 // over the four levels at the reference working point (10.8 / 21.5 / 43.1 /
 // 43.1 MB), plus pos, rows and the used sites, and writing the [capS, C]
 // f32 output: ~132 MB, ~39 us at 3.35 TB/s.
 //
-// Design (simple first): one block per (group, 32-channel slice). The
-// group's positions and its 32-channel slice of the cotangent are staged
-// in shared memory (P x 32 floats, read through the row stride, so the
-// cotangent may be a column slice of the [ngrp, P, 352] gradient). Each
-// warp takes a run of rows; for a row, lane l builds the weight of points
-// l, l+32, ..., a ballot finds the nonzero ones (warp-uniform), and each
-// nonzero weight is broadcast to the lanes, which own one channel each.
-// A point touches at most 8 cells, so most rows cost only their weights.
+// Design: the transpose of the forward's lookup. One block of 8 warps per
+// group, all C channels. It copies the group's cotangent [P, C] into
+// shared memory once (cp.async; it may be a column slice of the [ngrp, P,
+// 352] gradient), stages the group's row ids and coordinates, and builds
+// the same cell -> staged-row table as the forward (a block that finds a
+// cell listed twice scans instead; `lookup` 0 always scans). A thread per
+// (point, corner) finds the corner's weight and staged row and enters it
+// into that row's list (a shared-memory linked list; the links are set by
+// integer atomicExch, native on the card, where a float atomicAdd on
+// shared memory is a compare-and-swap loop). Then a warp per staged row
+// walks its list and sums w * grad[p, :] in registers (lane l holds
+// channels l, l + 32, ...: one conflict-free 128-byte read of the staged
+// cotangent an entry), and a row some point reaches goes to d_feats as one
+// coalesced run of C float atomics. A point's weights are computed once,
+// and a row costs nothing unless a point reaches it. The scan: a warp per
+// staged row weighs every point (ballot over the nonzero ones). Rows that
+// do not fit 200 KB of shared memory beside the cotangent go in several
+// passes; P * (4 C + 76) bytes must leave room for four rows.
+// Earlier designs: a block per (group, 32 channels) in which each warp
+// walked its rows and weighed every point for each took 0.256 ms for the
+// four levels, 6.5x the bound; a block per group that added each corner's
+// w * grad into an f32 accumulator [rows, C] in shared memory took 0.158
+// ms, its float atomicAdds compare-and-swap loops. This design: 0.124 ms
+// in both modes on an H100 80GB HBM3 at 700 W (3.2x the bound); level 4
+// (1024 sites, which the 658 groups share) costs the most, its rows' global
+// atomics landing on few addresses.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -203,6 +221,62 @@ __device__ __forceinline__ unsigned cell_hash(int x, int y, int z) {
          static_cast<unsigned>(z) * 83492791u;
 }
 
+// Enters the valid staged rows [0, nr) into the cell -> staged-row table
+// (open addressing, table_size = mask + 1 slots, -1 empty); sets *dup when
+// two staged rows share a cell, which the table cannot tell apart.
+__device__ __forceinline__ void insert_cells(const float* s_x, const float* s_y,
+                                             const float* s_z,
+                                             const int* s_row, int* s_tab,
+                                             unsigned mask, int nr, int* dup) {
+  for (int i = threadIdx.x; i < nr; i += blockDim.x) {
+    if (s_row[i] < 0) continue;
+    const float x = s_x[i], y = s_y[i], z = s_z[i];
+    unsigned h = cell_hash(static_cast<int>(x), static_cast<int>(y),
+                           static_cast<int>(z)) & mask;
+    while (true) {
+      const int old = atomicCAS(&s_tab[h], -1, i);
+      if (old == -1) break;
+      if (s_x[old] == x && s_y[old] == y && s_z[old] == z) {
+        *dup = 1;
+        break;
+      }
+      h = (h + 1) & mask;
+    }
+  }
+}
+
+// Corner c (0..7) of the point (px, py, pz), the cell floor(p) + the bits
+// of c: its weight as the contraction's operand (T: the features' type) and
+// its staged row, or weight 0 and row -1 where no staged row has that cell.
+template <typename T>
+__device__ __forceinline__ float corner_weight(float px, float py, float pz,
+                                               int c, const float* s_x,
+                                               const float* s_y,
+                                               const float* s_z,
+                                               const int* s_tab,
+                                               unsigned mask, int& row) {
+  row = -1;
+  if (!(fabsf(px) < 1e9f && fabsf(py) < 1e9f && fabsf(pz) < 1e9f)) return 0.f;
+  const float cx = floorf(px) + (c & 1);
+  const float cy = floorf(py) + ((c >> 1) & 1);
+  const float cz = floorf(pz) + (c >> 2);
+  float w = tent(px, cx);
+  w = w * tent(py, cy);
+  w = w * tent(pz, cz);
+  if (w == 0.f) return 0.f;
+  unsigned h = cell_hash(static_cast<int>(cx), static_cast<int>(cy),
+                         static_cast<int>(cz)) & mask;
+  while (true) {
+    const int t = s_tab[h];
+    if (t < 0) return 0.f;  // no staged row at this cell
+    if (s_x[t] == cx && s_y[t] == cy && s_z[t] == cz) {
+      row = t;
+      return weight_operand(w, static_cast<const T*>(nullptr));
+    }
+    h = (h + 1) & mask;
+  }
+}
+
 // CPL = C / 32 channels per lane. tile_rows (a multiple of 4) rows are
 // staged per pass; table_size is a power of two >= 2 * tile_rows.
 template <typename T, int CPL>
@@ -264,23 +338,7 @@ hat_interp_kernel(const T* __restrict__ feats, const int* __restrict__ sites,
                      "l"(src));
       }
     }
-    if (lookup) {
-      for (int i = tid; i < nr; i += FWD_THREADS) {
-        if (s_row[i] < 0) continue;
-        const float x = s_x[i], y = s_y[i], z = s_z[i];
-        unsigned h = cell_hash(static_cast<int>(x), static_cast<int>(y),
-                               static_cast<int>(z)) & mask;
-        while (true) {
-          const int old = atomicCAS(&s_tab[h], -1, i);
-          if (old == -1) break;
-          if (s_x[old] == x && s_y[old] == y && s_z[old] == z) {
-            s_flag[1] = 1;  // two staged rows share a cell
-            break;
-          }
-          h = (h + 1) & mask;
-        }
-      }
-    }
+    if (lookup) insert_cells(s_x, s_y, s_z, s_row, s_tab, mask, nr, &s_flag[1]);
     asm volatile("cp.async.wait_all;\n" ::);
     __syncthreads();
 
@@ -292,35 +350,9 @@ hat_interp_kernel(const T* __restrict__ feats, const int* __restrict__ sites,
         const int p = pb + q;
         float w = 0.f;
         int row = -1;
-        if (p < P) {
-          const float px = s_pos[3 * p], py = s_pos[3 * p + 1],
-                      pz = s_pos[3 * p + 2];
-          if (fabsf(px) < 1e9f && fabsf(py) < 1e9f && fabsf(pz) < 1e9f) {
-            const float cx = floorf(px) + (c & 1);
-            const float cy = floorf(py) + ((c >> 1) & 1);
-            const float cz = floorf(pz) + (c >> 2);
-            w = tent(px, cx);
-            w = w * tent(py, cy);
-            w = w * tent(pz, cz);
-            if (w != 0.f) {
-              unsigned h = cell_hash(static_cast<int>(cx), static_cast<int>(cy),
-                                     static_cast<int>(cz)) & mask;
-              while (true) {
-                const int t = s_tab[h];
-                if (t < 0) {
-                  w = 0.f;  // no staged row at this cell
-                  break;
-                }
-                if (s_x[t] == cx && s_y[t] == cy && s_z[t] == cz) {
-                  row = t;
-                  break;
-                }
-                h = (h + 1) & mask;
-              }
-              w = weight_operand(w, feats);
-            }
-          }
-        }
+        if (p < P)
+          w = corner_weight<T>(s_pos[3 * p], s_pos[3 * p + 1], s_pos[3 * p + 2],
+                               c, s_x, s_y, s_z, s_tab, mask, row);
         const unsigned found = __ballot_sync(0xffffffffu, w != 0.f);
         for (int qq = 0; qq < 4 && pb + qq < P; ++qq) {
           float* o = out + (g * P + pb + qq) * out_stride + lane * CPL;
@@ -423,65 +455,211 @@ int launch_c(int C, const void* feats, const void* sites, const void* rows,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-constexpr int BWD_THREADS = 256;
-
-template <bool BF16>
-__global__ void hat_interp_bwd_kernel(const float* __restrict__ grad,
-                                      long long grad_stride,
-                                      const int* __restrict__ sites,
-                                      const int* __restrict__ rows,
-                                      const float* __restrict__ pos,
-                                      float* __restrict__ d_feats, int P,
-                                      int capR, int capS, int C) {
-  extern __shared__ float smem[];
-  float* s_grad = smem;            // [P][32]
-  float* s_pos = smem + P * 32;    // [P][3]
+// CPL = C / 32 channels a lane, lane l holding channels l + 32 j. tile_rows
+// (a multiple of 4) rows are staged per pass; table_size is a power of two
+// >= 2 * tile_rows. T: the features' type, for the weights' rounding. vec:
+// the cotangent's rows are 16-byte aligned (16-byte copies, else 4-byte).
+template <typename T, int CPL>
+__global__ void __launch_bounds__(FWD_THREADS)
+hat_interp_bwd_kernel(const float* __restrict__ grad, long long grad_stride,
+                      const int* __restrict__ sites,
+                      const int* __restrict__ rows,
+                      const float* __restrict__ pos,
+                      float* __restrict__ d_feats, int P, int capR, int capS,
+                      int tile_rows, int table_size, int lookup, int vec) {
+  constexpr int C = 32 * CPL;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* s_grad = reinterpret_cast<float*>(smem_raw);  // [P][C]
+  float* s_x = s_grad + P * C;                          // [tile_rows] each
+  float* s_y = s_x + tile_rows;
+  float* s_z = s_y + tile_rows;
+  int* s_row = reinterpret_cast<int*>(s_z + tile_rows);
+  int* s_head = s_row + tile_rows;  // a staged row's first corner entry
+  float* s_pos = reinterpret_cast<float*>(s_head + tile_rows);  // [P][3]
+  float* s_w = s_pos + 3 * P;       // [8 P] corner c of point p at 8 p + c
+  int* s_next = reinterpret_cast<int*>(s_w + 8 * P);  // [8 P] list links
+  int* s_tab = s_next + 8 * P;                         // [table_size]
+  int* s_flag = s_tab + table_size;  // [0] rows to scan, [1] duplicate cell
 
   const long long g = blockIdx.x;
-  const int c0 = blockIdx.y * 32;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-
-  for (int i = tid; i < P * 32; i += blockDim.x) {
-    const int p = i >> 5;
-    s_grad[i] = grad[(g * P + p) * grad_stride + c0 + (i & 31)];
-  }
-  for (int i = tid; i < P * 3; i += blockDim.x) s_pos[i] = pos[g * P * 3 + i];
-  __syncthreads();
-
   const int* grow = rows + g * capR;
-  for (int r = warp; r < capR; r += nwarps) {
-    const int row = grow[r];
-    if (row < 0 || row >= capS) continue;  // sentinel: no feature row
-    const float sx = static_cast<float>(sites[3LL * row + 0]);
-    const float sy = static_cast<float>(sites[3LL * row + 1]);
-    const float sz = static_cast<float>(sites[3LL * row + 2]);
-    float acc = 0.f;
-    bool touched = false;
-    for (int p0 = 0; p0 < P; p0 += 32) {
-      const int p = p0 + lane;
-      float w = 0.f;
-      if (p < P) {
-        const float* pp = s_pos + p * 3;
-        w = fmaxf(0.f, 1.f - fabsf(pp[0] - sx));
-        w = w * fmaxf(0.f, 1.f - fabsf(pp[1] - sy));
-        w = w * fmaxf(0.f, 1.f - fabsf(pp[2] - sz));
-        if (BF16) w = __bfloat162float(__float2bfloat16_rn(w));
+  const unsigned mask = table_size - 1;
+
+  // the group's cotangent, read once: [P][C] into shared memory
+  const float* gg = grad + g * P * grad_stride;
+  if (vec) {
+    for (int i = tid; i < P * C / 4; i += FWD_THREADS) {
+      const int p = i / (C / 4), q = i % (C / 4);
+      const unsigned dst = static_cast<unsigned>(
+          __cvta_generic_to_shared(s_grad + p * C + 4 * q));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                   "l"(gg + p * grad_stride + 4 * q));
+    }
+  } else {
+    for (int i = tid; i < P * C; i += FWD_THREADS) {
+      const int p = i / C, c = i % C;
+      const unsigned dst =
+          static_cast<unsigned>(__cvta_generic_to_shared(s_grad + i));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                   "l"(gg + p * grad_stride + c));
+    }
+  }
+  for (int i = tid; i < 3 * P; i += FWD_THREADS) s_pos[i] = pos[g * P * 3 + i];
+
+  for (int r0 = 0; r0 < capR; r0 += tile_rows) {
+    const int nr = min(tile_rows, capR - r0);
+    __syncthreads();  // the previous pass is written out
+    if (tid < 2) s_flag[tid] = 0;
+    if (lookup)
+      for (int i = tid; i < table_size; i += FWD_THREADS) s_tab[i] = -1;
+    __syncthreads();
+    for (int i = tid; i < nr; i += FWD_THREADS) {
+      const int r = grow[r0 + i];
+      const bool valid = r >= 0 && r < capS;
+      s_row[i] = valid ? r : -1;
+      s_head[i] = -1;
+      const int* sc = sites + 3LL * (valid ? r : 0);
+      s_x[i] = valid ? static_cast<float>(sc[0]) : 1e9f;
+      s_y[i] = valid ? static_cast<float>(sc[1]) : 1e9f;
+      s_z[i] = valid ? static_cast<float>(sc[2]) : 1e9f;
+      if (valid) atomicMax(&s_flag[0], i + 1);
+    }
+    __syncthreads();
+    const int n = s_flag[0];  // rows past the last valid one weigh 0
+    if (lookup) insert_cells(s_x, s_y, s_z, s_row, s_tab, mask, nr, &s_flag[1]);
+    asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();
+
+    if (lookup && !s_flag[1]) {
+      // each corner of each point: its weight, entered into the list of its
+      // staged row (integer atomics: the lists' order is the only thing
+      // that varies from run to run)
+      for (int e = tid; e < 8 * P; e += FWD_THREADS) {
+        const int p = e >> 3;
+        int row;
+        const float w =
+            corner_weight<T>(s_pos[3 * p], s_pos[3 * p + 1], s_pos[3 * p + 2],
+                             e & 7, s_x, s_y, s_z, s_tab, mask, row);
+        if (w != 0.f) {
+          s_w[e] = w;
+          s_next[e] = atomicExch(&s_head[row], e);
+        }
       }
-      unsigned nz = __ballot_sync(0xffffffffu, w != 0.f);
-      touched |= nz != 0u;
-      while (nz) {
-        const int src = __ffs(nz) - 1;
-        nz &= nz - 1u;
-        const float wv = __shfl_sync(0xffffffffu, w, src);
-        acc = fmaf(wv, s_grad[(p0 + src) * 32 + lane], acc);
+      __syncthreads();
+      // a warp per staged row sums its list in registers
+      for (int i = warp; i < n; i += FWD_WARPS) {
+        int e = s_head[i];
+        if (e < 0) continue;  // no point reaches the row (warp-uniform)
+        float acc[CPL];
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) acc[j] = 0.f;
+        do {
+          const float w = s_w[e];
+          const float* gr = s_grad + (e >> 3) * C + lane;
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) acc[j] = fmaf(w, gr[32 * j], acc[j]);
+          e = s_next[e];
+        } while (e >= 0);
+        float* dst = d_feats + static_cast<long long>(s_row[i]) * C + lane;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) atomicAdd(dst + 32 * j, acc[j]);
+      }
+    } else {
+      // the scan: a warp per staged row weighs every point of the group
+      for (int i = warp; i < n; i += FWD_WARPS) {
+        if (s_row[i] < 0) continue;
+        const float sx = s_x[i], sy = s_y[i], sz = s_z[i];
+        float acc[CPL];
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) acc[j] = 0.f;
+        bool hit = false;
+        for (int p0 = 0; p0 < P; p0 += 32) {
+          const int p = p0 + lane;
+          float w = 0.f;
+          if (p < P) {
+            w = tent(s_pos[3 * p], sx);
+            w = w * tent(s_pos[3 * p + 1], sy);
+            w = w * tent(s_pos[3 * p + 2], sz);
+            w = weight_operand(w, static_cast<const T*>(nullptr));
+          }
+          unsigned nz = __ballot_sync(0xffffffffu, w != 0.f);
+          hit |= nz != 0u;
+          while (nz) {
+            const int src = __ffs(nz) - 1;
+            nz &= nz - 1u;
+            const float wv = __shfl_sync(0xffffffffu, w, src);
+            const float* gr = s_grad + (p0 + src) * C + lane;
+#pragma unroll
+            for (int j = 0; j < CPL; ++j) acc[j] = fmaf(wv, gr[32 * j], acc[j]);
+          }
+        }
+        if (!hit) continue;
+        float* dst = d_feats + static_cast<long long>(s_row[i]) * C + lane;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) atomicAdd(dst + 32 * j, acc[j]);
       }
     }
-    if (touched)
-      atomicAdd(d_feats + static_cast<long long>(row) * C + c0 + lane, acc);
   }
+}
+
+template <typename T, int CPL>
+int launch_bwd(const void* grad, long long grad_stride, const void* sites,
+               const void* rows, const void* pos, void* d_feats, int ngrp,
+               int P, int capR, int capS, int lookup, cudaStream_t stream) {
+  constexpr int C = 32 * CPL;
+  // per staged row: three coordinates, its id, its list head and at most 16
+  // bytes of the table; per block: the cotangent, the positions, the corner
+  // weights and links, two flags
+  const long long per_row = 20 + 16;
+  const long long fixed = static_cast<long long>(P) * (4 * C + 12 + 64) + 16;
+  const long long fit = (FWD_SMEM_BUDGET - fixed) / per_row / 4 * 4;
+  if (fit < 4) return static_cast<int>(cudaErrorInvalidValue);
+  const int tile_rows =
+      static_cast<int>(min(static_cast<long long>((capR + 3) / 4 * 4), fit));
+  int table_size = 32;
+  while (table_size < 2 * tile_rows) table_size *= 2;
+  const size_t smem = static_cast<size_t>(P) * (4 * C + 12 + 64) +
+                      static_cast<size_t>(tile_rows) * 20 + 4 * table_size + 8;
+  auto kernel = hat_interp_bwd_kernel<T, CPL>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int vec = reinterpret_cast<uintptr_t>(grad) % 16 == 0 &&
+                  grad_stride % 4 == 0;
+  kernel<<<ngrp, FWD_THREADS, smem, stream>>>(
+      static_cast<const float*>(grad), grad_stride,
+      static_cast<const int*>(sites), static_cast<const int*>(rows),
+      static_cast<const float*>(pos), static_cast<float*>(d_feats), P, capR,
+      capS, tile_rows, table_size, lookup, vec);
+  return 0;
+}
+
+template <typename T>
+int launch_bwd_c(int C, const void* grad, long long grad_stride,
+                 const void* sites, const void* rows, const void* pos,
+                 void* d_feats, int ngrp, int P, int capR, int capS,
+                 int lookup, cudaStream_t stream) {
+  switch (C) {
+    case 32:
+      return launch_bwd<T, 1>(grad, grad_stride, sites, rows, pos, d_feats,
+                              ngrp, P, capR, capS, lookup, stream);
+    case 64:
+      return launch_bwd<T, 2>(grad, grad_stride, sites, rows, pos, d_feats,
+                              ngrp, P, capR, capS, lookup, stream);
+    case 96:
+      return launch_bwd<T, 3>(grad, grad_stride, sites, rows, pos, d_feats,
+                              ngrp, P, capR, capS, lookup, stream);
+    case 128:
+      return launch_bwd<T, 4>(grad, grad_stride, sites, rows, pos, d_feats,
+                              ngrp, P, capR, capS, lookup, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -517,31 +695,26 @@ extern "C" int hat_interp_level_cuda(const void* feats, int feats_bf16,
 // grad rows of grad_stride floats, [ngrp, P, C] in the first C of each;
 // sites [capS, 3] int32, rows [ngrp, capR] int32, pos [ngrp, P, 3] f32, all
 // contiguous -> d_feats [capS, C] f32, contiguous and zeroed by the caller,
-// which this ADDS into. bf16 selects bf16-rounded weights. C is a multiple
-// of 32 and P * 35 floats fit the default 48 KB of shared memory.
+// which this ADDS into. bf16 selects bf16-rounded weights. C is 32, 64, 96
+// or 128, and a group's cotangent, positions and corner lists, P (4 C + 76)
+// bytes, leave room in FWD_SMEM_BUDGET for four staged rows (else
+// cudaErrorInvalidValue). lookup: as for hat_interp_level_cuda.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int hat_interp_level_bwd_cuda(const void* grad,
                                          long long grad_stride, int bf16,
                                          const void* sites, const void* rows,
                                          const void* pos, void* d_feats,
                                          int ngrp, int P, int capR, int capS,
-                                         int C, void* stream) {
-  const size_t smem = sizeof(float) * P * (32 + 3);
-  if (C <= 0 || C % 32 != 0 || ngrp <= 0 || P <= 0 || capR <= 0 ||
-      capS <= 0 || grad_stride < C || smem > 48 * 1024)
+                                         int C, int lookup, void* stream) {
+  if (ngrp <= 0 || P <= 0 || capR <= 0 || capS <= 0 || grad_stride < C)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(ngrp, C / 32);
-  const float* g = static_cast<const float*>(grad);
-  const int* si = static_cast<const int*>(sites);
-  const int* ro = static_cast<const int*>(rows);
-  const float* po = static_cast<const float*>(pos);
-  float* out = static_cast<float*>(d_feats);
-  if (bf16)
-    hat_interp_bwd_kernel<true><<<grid, BWD_THREADS, smem, s>>>(
-        g, grad_stride, si, ro, po, out, P, capR, capS, C);
-  else
-    hat_interp_bwd_kernel<false><<<grid, BWD_THREADS, smem, s>>>(
-        g, grad_stride, si, ro, po, out, P, capR, capS, C);
+  const int err =
+      bf16 ? launch_bwd_c<__nv_bfloat16>(C, grad, grad_stride, sites, rows,
+                                         pos, d_feats, ngrp, P, capR, capS,
+                                         lookup, s)
+           : launch_bwd_c<float>(C, grad, grad_stride, sites, rows, pos,
+                                 d_feats, ngrp, P, capR, capS, lookup, s);
+  if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }

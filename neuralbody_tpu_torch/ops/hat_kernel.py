@@ -22,7 +22,12 @@ gradient of hat_interp_level with respect to the features, the scatter of
 d_rf through the row lists included (atomics: rows repeat across groups).
 What bounds it: reading the f32 cotangent (the same 118.4 MB per step),
 plus pos, rows and the used sites, and writing the [capS, C] f32 output,
-~132 MB, ~39 us at 3.35 TB/s. The source notes of both kernels say more.
+~132 MB, ~39 us at 3.35 TB/s. Its design is the transpose of the
+forward's: a block per group copies the group's cotangent into shared
+memory once, finds each point's at most 8 rows through the same cell table
+(or the scan) and lists the points that reach each row; a warp per row
+sums its list in registers and adds the row into d_feats once. The source
+notes of both kernels say more.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches its kernel or raises. The wrappers carry no autograd graph on the
@@ -42,7 +47,7 @@ from ..utils import cuda_build
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "hat_interp.cu"
 
 LAUNCHES = 0      # forward kernel launches since the last reset
-LOOKUP = True     # the forward finds a point's rows through the cell table
+LOOKUP = True     # both kernels find a point's rows through the cell table
 # (a block falls back to the scan where its group lists a cell twice); False
 # scans always: the same function, kept to time the two against each other
 BWD_LAUNCHES = 0  # backward kernel launches (the plain paths count none)
@@ -105,7 +110,7 @@ def _kernels():
     fwd.argtypes = [p, i, p, p, p, p, i, i, i, i, i, ll, i, p]
     fwd.restype = ctypes.c_int
     bwd = lib.hat_interp_level_bwd_cuda
-    bwd.argtypes = [p, ll, i, p, p, p, p, i, i, i, i, i, p]
+    bwd.argtypes = [p, ll, i, p, p, p, p, i, i, i, i, i, i, p]
     bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -213,9 +218,9 @@ def _check_bwd(grad, sites, rows, pos, dtype):
     if grad.stride(2) != 1 or grad.stride(0) != P * s:
         raise ValueError(
             f"grad must be rows of one stride, got {grad.stride()}")
-    if C % 32 or P * 35 * 4 > 48 * 1024:
-        raise ValueError(f"backward kernel takes C % 32 == 0 and P <= 351, "
-                         f"got C={C}, P={P}")
+    if C not in (32, 64, 96, 128):
+        raise ValueError(f"backward kernel takes C % 32 == 0 up to 128, got "
+                         f"C={C}")
 
 
 def hat_interp_level_bwd(grad, sites, rows, pos, dtype):
@@ -230,7 +235,9 @@ def hat_interp_level_bwd(grad, sites, rows, pos, dtype):
 
     Returns d_feats [capS, C] f32 (capS = len(sites)). On the card the sum
     lands through float atomics in an order that changes from run to run,
-    so it is reproducible to f32 rounding.
+    so it is reproducible to f32 rounding. The kernel holds a group's
+    cotangent in shared memory; a launch whose P does not fit there fails
+    and raises.
     """
     global BWD_LAUNCHES
     if grad.device.type == "cpu":
@@ -248,7 +255,7 @@ def hat_interp_level_bwd(grad, sites, rows, pos, dtype):
         err = fn(grad.data_ptr(), grad.stride(1),
                  int(dtype == torch.bfloat16), sites.data_ptr(),
                  rows.data_ptr(), pos.data_ptr(), out.data_ptr(), ngrp, P,
-                 rows.shape[1], capS, C,
+                 rows.shape[1], capS, C, int(LOOKUP),
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(

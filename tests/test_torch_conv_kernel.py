@@ -219,3 +219,57 @@ def test_wrapper_on_the_cpu_is_the_plain_version():
     np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="no sparse-conv kernel"):
         conv_kernel.sparse_conv(T.to("meta"), idx.to("meta"), W.to("meta"))
+
+
+# (B, S, K, E) of the encoder's convs at the working point (site caps 6656 /
+# 16128 / 9984 / 3072 / 1024; packed convs K = 9, E = 3 Cin; strided K = 27)
+# and the split counts (bf16, f32) the plan gives them on a 132-SM H100;
+# tools/conv_variants.py times every count on the card
+@pytest.mark.parametrize("shape, want", [
+    ((1, 6656, 9, 48), (2, 2)),       # conv0: 104 tiles
+    ((1, 16128, 27, 16), (1, 1)),     # down0: 252 tiles
+    ((1, 16128, 9, 96), (1, 1)),      # conv1
+    ((1, 9984, 27, 32), (1, 3)),      # down1: 156 tiles
+    ((1, 9984, 9, 192), (3, 3)),      # conv2
+    ((1, 3072, 9, 384), (5, 5)),      # conv3: 48 tiles
+    ((1, 1024, 9, 384), (14, 16)),    # conv4: 16 tiles
+    ((1, 1024, 27, 128), (14, 16)),   # down3
+    ((1, 6656, 27, 32), (2, 2)),      # down0's dx
+    ((1, 16128, 27, 64), (1, 1)),     # down1's dx
+    ((1, 9984, 27, 128), (3, 5)),     # down2's dx: 156 tiles, long reduction
+    ((3, 1024, 9, 384), (5, 5)),      # a batch: 48 tiles
+    ((1, 64, 1, 16), (1, 1)),         # one step: nothing to split
+    ((1, 128, 9, 384), (14, 16)),     # 2 tiles: the shortest blocks
+])
+def test_split_plan(shape, want):
+    """How many blocks share a tile's reduction: the modelled least time,
+    within one cluster and the reduction's steps, the fewest among equals
+    (with an SM for every block: the fewest that give the shortest
+    block)."""
+    B, S, K, E = shape
+    for dtype, w in zip((torch.bfloat16, torch.float32), want):
+        assert conv_kernel.split_plan(B, S, K, E, dtype, 132) == w
+        steps = -(-K * E // conv_kernel.STAGE_DEPTH[dtype])
+        for sms in (78, 114, 132, 10 ** 6):
+            splits = conv_kernel.split_plan(B, S, K, E, dtype, sms)
+            assert 1 <= splits <= min(conv_kernel.MAX_SPLITS, steps)
+        cap = min(conv_kernel.MAX_SPLITS, steps)
+        least = min(range(1, cap + 1), key=lambda n: -(-steps // n))
+        assert conv_kernel.split_plan(B, S, K, E, dtype, 10 ** 6) == least
+
+
+def test_plan_matches_the_kernels_tiling():
+    """The plan's constants are the ones the kernel's source is built
+    with (the library reports them too, and the wrapper refuses a library
+    that disagrees)."""
+    import re
+    src = conv_kernel.SOURCE.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    depth = [int(v) for v in re.findall(
+        r"static constexpr int value = (\d+);", src)]
+    assert conv_kernel.tiling() == (
+        const("BM"), depth[0], depth[1], const("MAX_K"), const("MAX_SPLITS"),
+        const("MIN_BLOCKS"))

@@ -1,11 +1,17 @@
 """The gather-fused sparse-conv kernel (csrc/sparse_conv.cu) against its
-plain PyTorch version on the card. Skips where no NVIDIA GPU is present;
-run on the card with
+plain PyTorch version on the card: every layer shape of a full-width
+encode, forward and dx (the deepest reduction, 9 x 384, at 1024 and 3072
+sites, split over blocks), ragged site counts, taps that a tile never
+names, tables of sentinels only, batched views, and a second call that must
+be bit-equal.
+Skips where no NVIDIA GPU is present; run on the card with
 `python -m pytest --noconftest tests/test_torch_conv_kernel_cuda.py -q`.
 
 Tolerance: 1e-5 of the output's scale in f32 and in bf16 storage. Both
 versions round the operands alike (bf16 values and their products are
-exact in f32), so only the order of the f32 sum differs.
+exact in f32; in f32 the three TF32 products drop 2**-22 of each), so
+only the order of the f32 sum differs, and the tensor core's own sums,
+which cut instead of rounding, run over at most 256 of the reduction.
 """
 import pytest
 import torch
@@ -148,3 +154,93 @@ def test_conv_functions_launch_the_kernel(dev, dtype, kind):
     assert (dx.float() - rdx.float()).abs().max().item() <= \
         rel * rdx.float().abs().max().item()
     assert (dw - rdw).abs().max().item() <= 1e-4 * rdw.abs().max().item()
+
+
+# (name, n_rows, E, K, S, Cout) of the 17 convs of a full-width encode (site
+# caps 6656 / 16128 / 9984 / 3072 / 1024; a packed table has cap + F rows)
+# and of their dx: a packed conv's dx is a packed conv of the same shape
+# with Cin and Cout swapped, a strided conv's dx goes through the up table
+ENCODE = [
+    ("conv0", 7000, 48, 9, 6656, 16),
+    ("down0", 6656, 16, 27, 16128, 32),
+    ("conv1", 16700, 96, 9, 16128, 32),
+    ("down1", 16128, 32, 27, 9984, 64),
+    ("conv2", 10400, 192, 9, 9984, 64),
+    ("down2", 9984, 64, 27, 3072, 128),
+    ("conv3", 3300, 384, 9, 3072, 128),
+    ("down3", 3072, 128, 27, 1024, 128),
+    ("conv4", 1100, 384, 9, 1024, 128),
+    ("dx_conv0", 7000, 48, 9, 6656, 16),
+    ("dx_down0", 16128, 32, 27, 6656, 16),
+    ("dx_conv1", 16700, 96, 9, 16128, 32),
+    ("dx_down1", 9984, 64, 27, 16128, 32),
+    ("dx_conv2", 10400, 192, 9, 9984, 64),
+    ("dx_down2", 3072, 128, 27, 9984, 64),
+    ("dx_conv3", 3300, 384, 9, 3072, 128),
+    ("dx_down3", 1024, 128, 27, 3072, 128),
+    ("dx_conv4", 1100, 384, 9, 1024, 128),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layer", ENCODE, ids=[e[0] for e in ENCODE])
+def test_encode_layers(dev, dtype, layer):
+    _, n_rows, E, K, S, Cout = layer
+    T, idx, W = _inputs(10, (1,), n_rows, E, K, S, Cout, dtype, dev)
+    before = conv_kernel.CONV_LAUNCHES
+    out = conv_kernel.sparse_conv(T, idx, W)
+    torch.cuda.synchronize()
+    assert conv_kernel.CONV_LAUNCHES == before + 1
+    _close(out, conv_kernel.sparse_conv_plain(T, idx, W))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1000, 3001, 65, 1, 128])
+def test_ragged_site_counts(dev, dtype, S):
+    """S no multiple of the 64-site tile, with and without a split (S =
+    128: two tiles, each split over a cluster of blocks)."""
+    T, idx, W = _inputs(11, (), 1200, 384, 9, S, 128, dtype, dev)
+    _close(conv_kernel.sparse_conv(T, idx, W),
+           conv_kernel.sparse_conv_plain(T, idx, W))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [3072, 200])
+def test_taps_no_site_names(dev, dtype, S):
+    """Taps that no site of a tile names are skipped: the first tiles name
+    only some taps, one tile names none, and a table of sentinels only
+    gives exact zeros."""
+    T, idx, W = _inputs(12, (), 900, 64, 27, S, 64, dtype, dev)
+    idx[:5, :64] = 900                   # tile 0 lacks taps 0-4
+    idx[::2, 64:128] = 2 ** 30           # tile 1 lacks the even taps
+    idx[:, 128:192] = 900                # tile 2 names no tap
+    out = conv_kernel.sparse_conv(T, idx, W)
+    _close(out, conv_kernel.sparse_conv_plain(T, idx, W))
+    assert (out[128:192] == 0).all()
+    none = torch.full_like(idx, 900)
+    none[::3] = 2 ** 30
+    assert (conv_kernel.sparse_conv(T, none, W) == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_views_with_a_split(dev, dtype):
+    """A batch whose layers split the reduction (a cluster per tile) and a
+    view of a larger batch through its table stride."""
+    T, idx, W = _inputs(13, (3,), 1100, 384, 9, 1024, 128, dtype, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert conv_kernel.split_plan(2, 1024, 9, 384, dtype, sms) > 1
+    _close(conv_kernel.sparse_conv(T[1:], idx[1:], W),
+           conv_kernel.sparse_conv_plain(T[1:], idx[1:], W))
+    _close(conv_kernel.sparse_conv(T, idx, W),
+           conv_kernel.sparse_conv_plain(T, idx, W))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layer", ["conv4", "conv2", "dx_down0"])
+def test_second_call_is_bit_equal(dev, dtype, layer):
+    """Every sum runs in a fixed order (the split's partials too)."""
+    _, n_rows, E, K, S, Cout = next(e for e in ENCODE if e[0] == layer)
+    T, idx, W = _inputs(14, (), n_rows, E, K, S, Cout, dtype, dev)
+    a = conv_kernel.sparse_conv(T, idx, W)
+    b = conv_kernel.sparse_conv(T, idx, W)
+    assert torch.equal(a, b)

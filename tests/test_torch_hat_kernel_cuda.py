@@ -1,8 +1,9 @@
 """The hat kernels (csrc/hat_interp.cu, forward and backward) against
-their plain PyTorch versions on the card: the forward with its cell lookup
-and with its scan, at the working point's level shapes, with sentinel rows,
-duplicate cells, empty lists, several passes and column-slice outputs. Skips where no NVIDIA GPU is
-present; run on the card with
+their plain PyTorch versions on the card, each with its cell lookup and
+with its scan: at the working point's level shapes, with sentinel rows,
+duplicate cells, empty lists, several passes and column-slice outputs
+(forward) or cotangents (backward). Skips where no NVIDIA GPU is present;
+run on the card with
 `python -m pytest --noconftest tests/test_torch_hat_kernel_cuda.py -q`.
 
 Tolerances, of the output's scale, for both kernels:
@@ -242,10 +243,88 @@ def test_bwd_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         bwd(grad.transpose(0, 1).contiguous().transpose(0, 1), sites, rows,
             pos, torch.float32)
-    with pytest.raises(ValueError, match="P <= 351"):
-        big = torch.zeros((1, 400, 3), device=dev)
-        bwd(torch.zeros((1, 400, 32), device=dev), sites, rows[:1], big,
+    with pytest.raises(RuntimeError, match="launch failed"):
+        big = torch.zeros((1, 5000, 3), device=dev)
+        bwd(torch.zeros((1, 5000, 32), device=dev), sites, rows[:1], big,
             torch.float32)
+
+
+def _bwd_close(args, dtype, grad=None):
+    """The backward kernel against its plain version on the forward's
+    inputs and a cotangent (random unless given)."""
+    _, sites, rows, pos = args
+    if grad is None:
+        grad = torch.randn((*pos.shape[:2], args[0].shape[1]),
+                           generator=torch.Generator(device=pos.device)
+                           .manual_seed(21), device=pos.device)
+    before = hat_kernel.BWD_LAUNCHES
+    got = hat_kernel.hat_interp_level_bwd(grad, sites, rows, pos, dtype)
+    torch.cuda.synchronize()
+    assert hat_kernel.BWD_LAUNCHES == before + 1
+    _bwd_check(got, (grad, sites, rows, pos), dtype)
+    return got
+
+
+@pytest.mark.parametrize("lookup", [True, False], ids=["lookup", "scan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("level", LEVELS)
+def test_backward_at_the_working_point(dev, monkeypatch, level, dtype,
+                                       lookup):
+    capR, C, capS = level
+    monkeypatch.setattr(hat_kernel, "LOOKUP", lookup)
+    got = _bwd_close(_cell_inputs(20, 9, 128, capR, C, capS, dtype, dev),
+                     dtype)
+    assert (got.abs().sum(-1) > 0).sum().item() > 0
+
+
+@pytest.mark.parametrize("lookup", [True, False], ids=["lookup", "scan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_with_duplicate_cells(dev, monkeypatch, dtype, lookup):
+    """Rows listed twice and sites that share a cell: the lookup's blocks
+    scan instead, and every listed row gets its share."""
+    monkeypatch.setattr(hat_kernel, "LOOKUP", lookup)
+    args = _inputs(22, 6, 128, 200, 64, 150, dtype, dev)
+    assert any(len(set(r.tolist())) < r.numel() for r in args[2])
+    _bwd_close(args, dtype)
+
+
+@pytest.mark.parametrize("lookup", [True, False], ids=["lookup", "scan"])
+def test_backward_sentinel_rows_and_empty_lists(dev, monkeypatch, lookup):
+    monkeypatch.setattr(hat_kernel, "LOOKUP", lookup)
+    feats, sites, rows, pos = _cell_inputs(23, 4, 128, 64, 64, 400,
+                                           torch.bfloat16, dev)
+    rows[1] = 400                           # a group of only sentinel rows
+    rows[2, 3:] = 400
+    _bwd_close((feats, sites, rows, pos), torch.bfloat16)
+    grad = torch.randn((4, 128, 64), device=dev)
+    before = hat_kernel.BWD_LAUNCHES
+    out = hat_kernel.hat_interp_level_bwd(grad, sites, rows[:, :0], pos,
+                                          torch.float32)
+    assert (out == 0).all() and hat_kernel.BWD_LAUNCHES == before  # capR = 0
+
+
+@pytest.mark.parametrize("lookup", [True, False], ids=["lookup", "scan"])
+@pytest.mark.parametrize("level", LEVELS[1:3])
+def test_backward_reads_a_column_slice(dev, monkeypatch, level, lookup):
+    """The cotangent as the path hands it over: the level's columns of the
+    [ngrp, P, 352] gradient, read through its row stride."""
+    capR, C, capS = level
+    monkeypatch.setattr(hat_kernel, "LOOKUP", lookup)
+    args = _cell_inputs(24, 5, 128, capR, C, capS, torch.float32, dev)
+    buf = torch.randn((5, 128, 352), device=dev)
+    got = hat_kernel.hat_interp_level_bwd(buf[..., 96:96 + C], *args[1:],
+                                          torch.float32)
+    _bwd_check(got, (buf[..., 96:96 + C].contiguous(), *args[1:]),
+               torch.float32)
+
+
+@pytest.mark.parametrize("lookup", [True, False], ids=["lookup", "scan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_in_several_passes(dev, monkeypatch, dtype, lookup):
+    """More rows than fit in shared memory beside the group's cotangent
+    (300 points x 128 channels): each pass adds its rows into d_feats."""
+    monkeypatch.setattr(hat_kernel, "LOOKUP", lookup)
+    _bwd_close(_cell_inputs(25, 3, 300, 900, 128, 2000, dtype, dev), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
