@@ -21,7 +21,15 @@ through their entry points:
     samples, f32): nerf_eval_step on 8192 rays in four chunks, held against
     the port's CPU render and against four one-chunk renders; the first
     nerf_train_step's loss and gradients against the same step on the CPU,
-    then ten steps with the perturbation on whose loss must fall.
+    then ten steps with the perturbation on whose loss must fall;
+  * the graphed paths (train/graphs.py), bf16 and f32: the ten training
+    steps as five replays of a two-step StepGraph (train_step_scan's
+    dispatch) against five eager runs of them (the losses, every
+    parameter, Adam moment and BN-stat leaf within twice the eager runs'
+    spread), the kernels a replay launches counted by name in a
+    torch.profiler trace, and a RenderGraph render against eval_step; then
+    both timed beside their eager loops, an eager step's host operations
+    profiled, and the port's bench (neuralbody_tpu_torch/bench.py) run.
 
 Each kernel (the hat contraction forward and backward, each with its cell
 lookup and with its scan; the gather-fused sparse conv on the tensor cores
@@ -49,9 +57,11 @@ Exits non-zero with no result line when no CUDA device is present.
 from __future__ import annotations
 
 import concurrent.futures
+import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -120,6 +130,19 @@ MM_PER_MLP = 12           # dense layers of one MLP application
 DECODE_POINTS = 131072    # one chunk of the plan-free latent_xyzc render
 DECODE_LAYERS = ((352, 256), (256, 256), (256, 256), (256, 1), (256, 256),
                  (384, 256), (346, 128), (128, 3))   # decode_raw's (K, N)
+GRAPH_G = 2      # steps a StepGraph replay, replayed five times: ten steps
+# (a replay's trace of ~4,700 kernels; the profiler dropped some of 10,300)
+SCAN_G = 8       # steps a dispatch in scan_timing, as in the bench
+SCAN_ROUNDS = 2  # ABBA rounds of one graphed and one eager dispatch
+# a graph against eager steps: its distance from the nearest of EAGER_RUNS
+# eager runs at most twice the largest distance between two of them (the
+# hat backward's float atomics and index_add_ change their order from run
+# to run; one pair is too few a sample for a leaf of one to three numbers)
+# plus this much of the leaf's scale
+EAGER_RUNS = 5
+NOISE_SCALE = 1e-6
+PRODUCT_KERNEL = re.compile(r"gemm|gemv|splitkreduce", re.IGNORECASE)
+HOST_TOP = 15    # host operations listed by host_profile
 MM_REPLACES = "tools/probes/pallas_enc_interp.py:22"
 CONV_REPLACES = ("tools/probes/pallas_gather.py:25, "
                  "tools/probes/indexed_ops.py:122, "
@@ -133,8 +156,12 @@ def card_line():
         check=True).stdout.strip().splitlines()[0]
 
 
+START = time.perf_counter()
+
+
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    """One JSON line of a phase's results, with the seconds since start."""
+    print(json.dumps(dict(kw, at_s=time.perf_counter() - START)), flush=True)
 
 
 def median_ms(torch, fn, runs=25, warmup=3):
@@ -282,22 +309,21 @@ def profile_step(torch, step, what, mode, step_ms, top=12):
     is busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
-    # the device's own events (kernels, copies, memsets), not the host ops
-    # that launched them, which carry the same time again
+    # the device's own events (kernels, copies, memsets)
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
     busy = sum(r[1] for r in rows)
+    launches = sum(r[2] for r in rows)
     rows.sort(key=lambda r: -r[1])
     emit(phase="profile", path=what, mode=mode, device_busy_ms=busy,
-         busy_share=busy / step_ms, kernels=len(rows),
-         launches=sum(r[2] for r in rows),
+         busy_share=busy / step_ms, kernels=len(rows), launches=launches,
          top=[{"name": k[:90], "ms": ms, "count": n}
               for k, ms, n in rows[:top]])
+    return busy, launches
 
 
 def interleaved_ms(torch, run, modes, rounds, per_round):
@@ -334,6 +360,61 @@ def leaves(tree):
         return [(f"{i}/{p}", x) for i, v in enumerate(tree)
                 for p, x in leaves(v)]
     return [("", tree)]
+
+
+def stack_steps(batch, G):
+    """A batch repeated on a leading axis of G steps (a broadcast view)."""
+    return {k: stack_steps(v, G) if isinstance(v, dict)
+            else v[None].expand(G, *v.shape) for k, v in batch.items()}
+
+
+def traced_kernels(torch, fn, path):
+    """The kernels fn() launches on the card, read from a torch.profiler
+    trace (CUDA activity; a graph's replay shows each of its kernel nodes):
+    the three hand kernels by name, the conv launches that run as a
+    cluster (grid.y > 1: the split count, which is the cluster's size), the
+    dense products (cuBLAS's gemm, gemv and split-K kernels), and the
+    device's busy ms (kernels, copies and fills)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+
+    def count(pred):
+        return sum(1 for e in kernels if pred(e["name"], e.get("args", {})))
+
+    return dict(
+        busy_ms=sum(e.get("dur", 0) for e in events if e.get("cat") in (
+            "kernel", "gpu_memcpy", "gpu_memset")) / 1e3,
+        kernels=len(kernels),
+        hat_fwd=count(lambda n, a: "hat_interp_kernel" in n),
+        hat_bwd=count(lambda n, a: "hat_interp_bwd_kernel" in n),
+        conv=count(lambda n, a: "sparse_conv_mma_kernel" in n),
+        conv_cluster=count(lambda n, a: "sparse_conv_mma_kernel" in n
+                           and a.get("grid", [1, 1, 1])[1] > 1),
+        products=count(lambda n, a: PRODUCT_KERNEL.search(n) is not None))
+
+
+def noise_rule(torch, graph, eager):
+    """Per (path, tensor) leaf of a graphed run and of EAGER_RUNS eager runs
+    of the same steps: the L2 distance of the graph's from the nearest eager
+    run, the noise floor (the largest distance between two eager runs), and
+    the allowance 2 x floor + NOISE_SCALE x |first eager run|. Returns the
+    rows and those over their allowance."""
+    rows = []
+    for (path, g), *runs in zip(graph, *eager):
+        g = g.detach().float()
+        es = [e.detach().float() for _, e in runs]
+        err = min((g - e).norm().item() for e in es)
+        floor = max((a - b).norm().item()
+                    for a, b in itertools.combinations(es, 2))
+        rows.append((path, err, floor,
+                     2 * floor + NOISE_SCALE * es[0].norm().item()))
+    return rows, [r for r in rows if not r[1] <= r[3]]
 
 
 def nerf_family(torch, dev, card, ebatch, rbatch):
@@ -940,9 +1021,13 @@ def main():
                                           hat_interp, hat_kernel, sparse_conv)
     from neuralbody_tpu_torch.renderer.renderer import (RenderSettings,
                                                         render_density_grid)
+    from neuralbody_tpu_torch import bench as port_bench
     from neuralbody_tpu_torch.train import optimizer
+    from neuralbody_tpu_torch.train.graphs import (WARMUP, RenderGraph,
+                                                   StepGraph)
     from neuralbody_tpu_torch.train.step import (eval_step, loss_and_grads,
-                                                 train_step)
+                                                 scan_slice, train_step,
+                                                 train_step_scan, train_steps)
     from neuralbody_tpu_torch.utils import cuda_build
     from neuralbody_tpu_torch.utils.platform import to_device
     from neuralbody_tpu_torch.utils.synthetic import make_batch
@@ -1310,7 +1395,14 @@ def main():
     # (a) + (c): the main training path, TRAIN_STEPS steps on one batch per
     # mode from the seeded weights, 4 forward and 4 backward hat launches
     # and 17 forward and 17 dx conv launches per step, the loss falling
-    losses = {}
+    def state_leaves(tp, tbn, opt, step_losses):
+        return ([(f"params/{p}", t) for p, t in leaves(tp)]
+                + [(f"mu/{p}", t) for p, t in leaves(opt.mu)]
+                + [(f"nu/{p}", t) for p, t in leaves(opt.nu)]
+                + [(f"bn/{p}", t) for p, t in leaves(tbn)]
+                + [("loss", torch.as_tensor(step_losses))])
+
+    losses, eager_runs = {}, {}
     for mode in modes:
         tp, tbn = fresh_params()
         opt = optimizer.make_optimizer(tp, schedule())
@@ -1325,6 +1417,7 @@ def main():
                                                         before)))
         torch.cuda.synchronize()
         launches[("train", mode)] = read_counts()
+        eager_runs[mode] = [state_leaves(tp, tbn, opt, losses[mode])]
         finite = all(torch.isfinite(p).all() for _, p in leaves(tp))
         emit(phase="train", mode=mode, steps=TRAIN_STEPS, lr=LR,
              losses=losses[mode], launches_per_step=per_step[0],
@@ -1336,6 +1429,138 @@ def main():
         if not (finite and all(map(math.isfinite, losses[mode]))
                 and losses[mode][-1] < losses[mode][0]):
             raise AssertionError(f"{mode} training: losses {losses[mode]}")
+
+    # -- 5a. the graphed paths: train_step_scan's StepGraph, RenderGraph ----
+    # ten steps as five replays of a two-step graph from the seeded state,
+    # against the ten eager steps above and EAGER_RUNS - 1 more eager runs
+    # (the noise floor); the counters count at capture (the warm-up's and the
+    # capture's launches), a profiled replay shows what the card runs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def clusters(convs):
+        return sum(conv_kernel.split_plan(
+            T.shape[0] if T.dim() == 3 else 1, idx.shape[-1], idx.shape[-2],
+            T.shape[-1], T.dtype, sms) > 1 for T, idx, _ in convs)
+
+    # what the graphed paths' checks find fails the run at its end, after
+    # the phases that do not depend on them have measured
+    graph_replay, eager_trace, failed = {}, {}, []
+    for mode in modes:
+        s = settings(mode, ths)
+        for _ in range(EAGER_RUNS - 1):
+            tp, tbn = fresh_params()
+            opt = optimizer.make_optimizer(tp, schedule())
+            tbn, st = train_steps(tp, tbn, opt, [tbatch_dev] * TRAIN_STEPS,
+                                  s, device=dev)
+            eager_runs[mode].append(state_leaves(tp, tbn, opt,
+                                                 st["loss"].tolist()))
+        eager_tp, eager_tbn, eager_opt = tp, tbn, opt
+        tp, tbn = fresh_params()
+        opt = optimizer.make_optimizer(tp, schedule())
+        graph = StepGraph(dev)
+        batches = stack_steps(tbatch_dev, GRAPH_G)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        tbn, st = graph(tp, tbn, opt, batches, s)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        capture_counts = read_counts()
+        pool_peak = torch.cuda.max_memory_allocated() - base
+        graph_losses = [st["loss"]]
+        for _ in range(TRAIN_STEPS // GRAPH_G - 2):
+            tbn, st = graph(tp, tbn, opt, batches, s)
+            graph_losses.append(st["loss"])
+        last = {}
+
+        def replay():
+            last["bn"], last["stats"] = graph(tp, tbn, opt, batches, s)
+
+        replay = traced_kernels(
+            torch, replay,
+            os.path.join(cuda_build.BUILD_DIR, f"replay_{mode}.json"))
+        tbn = last["bn"]
+        graph_losses = torch.cat(graph_losses
+                                 + [last["stats"]["loss"]]).tolist()
+        rows, over = noise_rule(torch, state_leaves(tp, tbn, opt,
+                                                    graph_losses),
+                                eager_runs[mode])
+        eager_step = traced_kernels(
+            torch, lambda: train_step(eager_tp, eager_tbn, eager_opt,
+                                      tbatch_dev, s, device=dev),
+            os.path.join(cuda_build.BUILD_DIR, f"eager_{mode}.json"))
+        want_clusters = clusters(step_fwd_convs[mode]) + clusters(
+            conv_inputs[mode]["dx"])
+        per_step = {k: v / GRAPH_G for k, v in replay.items()}
+        graph_replay[mode] = per_step
+        eager_trace[mode] = eager_step
+        emit(phase="graph_launches", mode=mode, steps_per_replay=GRAPH_G,
+             replay=replay, replay_per_step=per_step, eager_step=eager_step,
+             cluster_launches_planned_per_step=want_clusters,
+             counters_at_capture=capture_counts, capture_s=capture_s,
+             pool_peak_gb=pool_peak / 1e9, captures=graph.captures)
+        if (capture_counts != tuple((1 + WARMUP) * GRAPH_G * n
+                                    for n in (4, 4, 2 * CONV_LAYERS))
+                or per_step["hat_fwd"] != 4 or per_step["hat_bwd"] != 4
+                or per_step["conv"] != 2 * CONV_LAYERS
+                or per_step["conv_cluster"] != want_clusters
+                or want_clusters == 0
+                or per_step["products"] != eager_step["products"]
+                or eager_step["hat_fwd"] != 4 or eager_step["conv"] != 34):
+            failed.append(
+                f"{mode} graph: counters {capture_counts}, a replay's "
+                f"kernels per step {per_step}, an eager step's {eager_step}, "
+                f"{want_clusters} cluster launches planned a step")
+        groups = {}
+        for path, err, floor, allow in rows:
+            g = groups.setdefault(path.split("/")[0], dict(
+                leaves=0, zero_floor=0, worst=None))
+            g["leaves"] += 1
+            g["zero_floor"] += floor == 0
+            ratio = err / allow if allow else (0.0 if err == 0 else math.inf)
+            if g["worst"] is None or ratio > g["worst"][0]:
+                g["worst"] = (ratio, path, err, floor, allow)
+        emit(phase="graph_vs_eager", mode=mode, steps=TRAIN_STEPS,
+             graph_losses=graph_losses, eager_losses=losses[mode],
+             eager_runs=EAGER_RUNS, noise_scale=NOISE_SCALE, groups=groups,
+             over=len(over))
+        emit(phase="graph_vs_eager_leaves", mode=mode,
+             rows=[dict(path=p, graph_vs_eager=e, eager_vs_eager=f,
+                        allowed=a) for p, e, f, a in rows])
+        if over or not (all(map(math.isfinite, graph_losses))
+                        and graph_losses[-1] < graph_losses[0]):
+            failed.append(f"{mode} graph against eager steps: {over[:5]}, "
+                          f"losses {graph_losses}")
+        del graph, batches, eager_tp, eager_tbn, eager_opt
+        eager_runs[mode] = None
+        torch.cuda.empty_cache()
+
+    render_graphs, render_replay = {}, {}
+    for mode in modes:
+        render_graphs[mode] = RenderGraph(dev)
+        reset_counts()
+        ret = render_graphs[mode](params, batch_dev, settings(mode))
+        torch.cuda.synchronize()
+        capture_counts = read_counts()
+        got = check_maps(ret, N_RAYS, f"{mode} graphed render")
+        render_replay[mode] = traced_kernels(
+            torch, lambda: render_graphs[mode](params, batch_dev,
+                                               settings(mode)),
+            os.path.join(cuda_build.BUILD_DIR, f"render_replay_{mode}.json"))
+        emit(phase="graph_render_vs_eager", mode=mode,
+             max_abs_err=map_errors(got, renders[mode], RENDER_TOL[mode],
+                                    f"{mode} graphed render vs eval_step"),
+             tol_rel=RENDER_TOL[mode], counters_at_capture=capture_counts,
+             replay=render_replay[mode])
+        r = render_replay[mode]
+        if (capture_counts != tuple((1 + WARMUP) * n
+                                    for n in (4, 0, CONV_LAYERS))
+                or r["hat_fwd"] != 4
+                or r["hat_bwd"] != 0 or r["conv"] != CONV_LAYERS):
+            failed.append(f"{mode} graphed render: counters "
+                          f"{capture_counts}, replay {r}")
 
     # -- 5b. the plan-free eval render: rays only, chunked, hull culling on --
     branches = ("site", "dense")
@@ -1545,7 +1770,6 @@ def main():
     # backward as the port computes it, outside any kernel: the weight
     # gradient, a gather of the cotangent's table ([K, S, E]) and an einsum
     # against the forward conv's input
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for mode in modes:
         for kind, layers in conv_inputs[mode].items():
             tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
@@ -1696,8 +1920,115 @@ def main():
              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
         profile_step(torch, lambda: one_step(mode), "train", mode, med)
 
-    # -- 6b. the NeRF baseline family and the dense product ------------------
+    # -- 6a. the graphed paths' times, each beside its eager loop in ABBA
+    # rounds on one state: train_step_scan (one dispatch of SCAN_G steps, a
+    # replay) against train_steps (SCAN_G eager steps), RenderGraph against
+    # eval_step
     del state
+    for mode in modes:
+        tp, tbn = fresh_params()
+        opt = optimizer.make_optimizer(tp, schedule())
+        s = settings(mode, ths)
+        batches = stack_steps(tbatch_dev, SCAN_G)
+        steps = [scan_slice(batches, i) for i in range(SCAN_G)]
+        box = {"bn": tbn}
+
+        def dispatch(way):
+            if way == "graph":
+                box["bn"], _ = train_step_scan(tp, box["bn"], opt, batches, s,
+                                               device=dev)
+            else:
+                box["bn"], _ = train_steps(tp, box["bn"], opt, steps, s,
+                                           device=dev)
+
+        times, gaps = interleaved_ms(torch, dispatch, ("graph", "eager"),
+                                     SCAN_ROUNDS, 1)
+        # busy time and launches a step from the traces of "graph_launches"
+        # (a replay) and of one eager step
+        row = {}
+        for way, trace in (("graph", graph_replay[mode]),
+                           ("eager", eager_trace[mode])):
+            med = statistics.median(times[way])
+            row[way] = dict(
+                dispatch_ms=med, step_ms=med / SCAN_G,
+                train_rays_per_s=N_RAYS * SCAN_G / med * 1e3,
+                busy_ms_per_step=trace["busy_ms"],
+                busy_share=trace["busy_ms"] * SCAN_G / med,
+                kernels_per_step=trace["kernels"],
+                dispatch_ms_all=times[way])
+        emit(phase="scan_timing", mode=mode, steps_per_dispatch=SCAN_G,
+             rounds=SCAN_ROUNDS, graph_minus_eager_ms=gaps,
+             captures=opt.step_graph.captures, card=card, **row)
+        del tp, tbn, opt, batches, steps, box
+        torch.cuda.empty_cache()
+
+    for mode in modes:
+        s = settings(mode)
+
+        def render(way):
+            if way == "graph":
+                render_graphs[mode](params, batch_dev, s)
+            else:
+                eval_step(params, batch_dev, s, device=dev)
+
+        times, gaps = interleaved_ms(torch, render, ("graph", "eager"),
+                                     RENDER_ROUNDS, RENDERS_PER_ROUND)
+        row = {}
+        for way in ("graph", "eager"):
+            med = statistics.median(times[way])
+            busy, n = profile_step(torch, lambda: render(way),
+                                   f"render_{way}", mode, med)
+            row[way] = dict(render_ms=med, rays_per_s=N_RAYS / med * 1e3,
+                            busy_ms=busy, busy_share=busy / med, launches=n)
+        emit(phase="graph_render_timing", mode=mode, rounds=RENDER_ROUNDS,
+             renders_per_round=RENDERS_PER_ROUND, graph_minus_eager_ms=gaps,
+             captures=render_graphs[mode].captures, card=card, **row)
+    del render_graphs
+    torch.cuda.empty_cache()
+
+    # where an eager step's host time goes: torch.profiler with the CPU
+    # activity on, host operations by their own (self) time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for mode in modes:
+        tp, tbn = fresh_params()
+        opt = optimizer.make_optimizer(tp, schedule())
+        s = settings(mode, ths)
+        for _ in range(2):
+            tbn, _ = train_step(tp, tbn, opt, tbatch_dev, s, device=dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tbn, _ = train_step(tp, tbn, opt, tbatch_dev, s, device=dev)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        ops = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU and e.self_cpu_time_total]
+        ops.sort(key=lambda e: -e.self_cpu_time_total)
+        host_ms = sum(e.self_cpu_time_total for e in ops) / 1e3
+        emit(phase="host_profile", mode=mode, profiled_step_ms=wall_ms,
+             host_ops_self_ms=host_ms, outside_ops_ms=wall_ms - host_ms,
+             host_ops=len(ops), host_calls=sum(e.count for e in ops),
+             top=[{"name": e.key[:90], "self_ms": e.self_cpu_time_total / 1e3,
+                   "count": e.count, "share": e.self_cpu_time_total / 1e3
+                   / wall_ms} for e in ops[:HOST_TOP]], card=card)
+        del tp, tbn, opt, prof
+
+    # the port's bench, as `python -m neuralbody_tpu_torch.bench` runs it
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    line = port_bench.summary(
+        port_bench.measure_broadcast(),
+        port_bench.measure_broadcast(n_rays=4096, n_iters=6, extras=False),
+        card)
+    emit(phase="bench", seconds=time.perf_counter() - t0, **line)
+    if (set(port_bench.BENCH_KEYS) - line.keys()
+            or not line["broadcast_rays_per_s"] > 0
+            or not line["broadcast_4096_rays_per_s"] > 0):
+        raise AssertionError(f"bench line: {line}")
+
+    # -- 6b. the NeRF baseline family and the dense product ------------------
     torch.cuda.empty_cache()
     nerf_kernels = nerf_family(torch, dev, card, ebatch, rbatch)
 
@@ -1717,7 +2048,11 @@ def main():
                 "max_abs_err": (max_err if kind == "fwd" else bwd_err)[mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"], "scan_ms": t["scan_ms"]})
+                "library_ms": t["library_ms"], "scan_ms": t["scan_ms"],
+                "replay_launches_per_step": graph_replay[mode][
+                    "hat_fwd" if kind == "fwd" else "hat_bwd"],
+                "replay_launches_per_render": render_replay[mode][
+                    "hat_fwd" if kind == "fwd" else "hat_bwd"]})
     # the conv kernel's forward launches: 17 per encode in every forward
     # path and in each training step; its dx launches: 17 per training step
     # (34 counted per step above)
@@ -1736,8 +2071,14 @@ def main():
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"],
-                "bound_fp32_cores_ms": t["bound_fp32_cores_ms"]})
+                "bound_fp32_cores_ms": t["bound_fp32_cores_ms"],
+                # one kernel name: a replay's forward and dx launches together
+                "replay_launches_per_step": graph_replay[mode]["conv"],
+                "replay_launches_per_render": (
+                    render_replay[mode]["conv"] if kind == "fwd" else 0)})
     kernels += nerf_kernels
+    if failed:
+        raise AssertionError("; ".join(failed))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

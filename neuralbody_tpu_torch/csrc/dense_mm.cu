@@ -805,12 +805,15 @@ int launch_narrow(const Args& p, bool rows) {
   if (rows) {
     const size_t smem = sizeof(float) * NN * ((p.K + 3) & ~3);
     auto kernel = dense_narrow_rows_kernel<NN>;
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
+    static bool done[64] = {};  // one per instantiation of this function
+    int dev = 0, most = 0;  // the most shared memory a block may have
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int err = allow_smem(kernel, most, done);
+    if (err != 0) return err;
     const int blocks = min(ROW_BLOCKS, (p.M + 7) / 8);
     kernel<<<blocks, THREADS, smem, p.stream>>>(
         a, b, p.bias, p.dst, p.M, p.K, p.sam, p.sbk, p.sbn,

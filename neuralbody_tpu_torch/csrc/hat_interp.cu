@@ -404,6 +404,24 @@ hat_interp_kernel(const T* __restrict__ feats, const int* __restrict__ sites,
   }
 }
 
+// Lets `kernel` use up to FWD_SMEM_BUDGET bytes of dynamic shared memory
+// (every launch of both directions stays within it), asked for once per
+// device: `done` is the caller's own flag array for this kernel. The call
+// is not allowed while a stream is being captured into a CUDA graph, so a
+// captured launch must find it made by an earlier, eager one.
+template <typename Kernel>
+int allow_smem(Kernel kernel, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 0 && dev < 64 && done[dev]) return 0;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM_BUDGET);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 0 && dev < 64) done[dev] = true;
+  return 0;
+}
+
 template <typename T, int CPL>
 int launch(const void* feats, const void* sites, const void* rows,
            const void* pos, void* out, int ngrp, int P, int capR, int capS,
@@ -423,12 +441,9 @@ int launch(const void* feats, const void* sites, const void* rows,
   const size_t smem = static_cast<size_t>(tile_rows) * (C * sizeof(T) + 16) +
                       12 * P + 4 * table_size + 8;
   auto kernel = hat_interp_kernel<T, CPL>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  static bool done[64] = {};  // one per instantiation of this function
+  const int err = allow_smem(kernel, done);
+  if (err != 0) return err;
   kernel<<<ngrp, FWD_THREADS, smem, stream>>>(
       static_cast<const T*>(feats), static_cast<const int*>(sites),
       static_cast<const int*>(rows), static_cast<const float*>(pos),
@@ -624,12 +639,9 @@ int launch_bwd(const void* grad, long long grad_stride, const void* sites,
   const size_t smem = static_cast<size_t>(P) * (4 * C + 12 + 64) +
                       static_cast<size_t>(tile_rows) * 20 + 4 * table_size + 8;
   auto kernel = hat_interp_bwd_kernel<T, CPL>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  static bool done[64] = {};  // one per instantiation of this function
+  const int err = allow_smem(kernel, done);
+  if (err != 0) return err;
   const int vec = reinterpret_cast<uintptr_t>(grad) % 16 == 0 &&
                   grad_stride % 4 == 0;
   kernel<<<ngrp, FWD_THREADS, smem, stream>>>(

@@ -18,7 +18,7 @@ import torch
 from ..ops.embedder import positional_encoding
 from ..ops.grid_sample import multiscale_grid_sample
 from ..ops.sparse_conv import scatter_vertex_codes, site_trilinear_sample
-from ..utils.platform import resolve_device, to_device
+from ..utils.platform import constant, resolve_device, to_device
 from . import sparse_conv_net
 from .nn_utils import dense, dense_init, embedding_init, mxu_dtype
 
@@ -88,9 +88,8 @@ def get_grid_coords(ppts, bounds, voxel_size, out_sh):
     with the reference's normalization: division by out_sh, not by
     out_sh - 1."""
     dhw = get_dhw_vox(ppts, bounds, voxel_size)
-    dhw = dhw / torch.tensor(out_sh, dtype=dhw.dtype,
-                             device=dhw.device) * 2.0 - 1.0
-    return dhw[..., [2, 1, 0]]
+    dhw = dhw / constant(out_sh, dhw.dtype, dhw.device) * 2.0 - 1.0
+    return dhw.flip(-1)   # xyz order; no index list to copy to the device
 
 
 def interpolate_features(grid_coords, volumes):
@@ -112,8 +111,8 @@ def interpolate_site_features(site_feats, index_vols, dhw_vox, static):
 
 def get_dhw_vox(ppts, bounds, voxel_size):
     """SMPL-frame points -> continuous full-res voxel coords (dhw order)."""
-    vs = torch.tensor(voxel_size, dtype=ppts.dtype, device=ppts.device)
-    return (ppts[..., [2, 1, 0]] - bounds[0][[2, 1, 0]]) / vs
+    vs = constant(voxel_size, ppts.dtype, ppts.device)
+    return (ppts.flip(-1) - bounds[0].flip(-1)) / vs
 
 
 def _density_trunk(params, feat, dt=None):
@@ -143,7 +142,10 @@ def decode_raw(params, feat, wpts, viewdir, frame, static: ModelStatic):
     alpha = dense(params["alpha_fc"], net, dt)
 
     features = dense(params["feature_fc"], net, dt)
-    latent = params["frame_latent"][frame["latent_index"].long()]
+    # index_select, not indexing: a 0-d index tensor would be read back to
+    # the host (a device sync, which a CUDA graph cannot capture)
+    latent = params["frame_latent"].index_select(
+        0, frame["latent_index"].long().reshape(-1))
     latent = latent.expand(*features.shape[:-1], latent.shape[-1])
     features = dense(params["latent_fc"],
                      torch.cat([features, latent.to(features.dtype)], dim=-1),

@@ -5,6 +5,25 @@ exclusive-cumprod transmittance, weighted sums for rgb/depth/disp/acc.
 import torch
 
 
+class _Cumprod(torch.autograd.Function):
+    """torch.cumprod over the last axis of a tensor with no zero entry. Its
+    backward is PyTorch's own for that case, (the reversed cumulative sum of
+    output * grad) / input, without PyTorch's test for a zero entry, which
+    reads a value back to the host: a device sync that a CUDA graph cannot
+    capture."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1) / x
+
+
 def raw2outputs(raw, z_vals, rays_d, white_bkgd=False, raw_noise_std=0.0,
                 generator=None):
     """Composite per-sample raw predictions into per-ray maps.
@@ -33,10 +52,11 @@ def raw2outputs(raw, z_vals, rays_d, white_bkgd=False, raw_noise_std=0.0,
                                     device=sigma.device) * raw_noise_std
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
 
-    # exclusive cumulative product of (1 - alpha) -> transmittance
-    trans = torch.cumprod(
+    # exclusive cumulative product of (1 - alpha) -> transmittance; every
+    # factor is at least 1e-10
+    trans = _Cumprod.apply(
         torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10],
-                  dim=-1), dim=-1)[..., :-1]
+                  dim=-1))[..., :-1]
     weights = alpha * trans
 
     rgb_map = (weights[..., None] * rgb).sum(-2)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.platform import constant
 from .hat_kernel import hat_interp_level, hat_interp_level_bwd
 
 # ---------------------------------------------------------------------------
@@ -335,8 +336,7 @@ def sorted_pts_np(batch, b, n_samples):
 def decode_z(z_frac, near, far):
     """u16 slab fractions (as int32) -> f32 depths [R, S]; bit-identical to
     decode_z_np: the scale is multiplied, never divided."""
-    scale = torch.tensor(1.0 / 65535.0, dtype=torch.float32,
-                         device=z_frac.device)
+    scale = constant(1.0 / 65535.0, torch.float32, z_frac.device)
     return near[:, None] + (far - near)[:, None] * (z_frac.float() * scale)
 
 
@@ -430,11 +430,11 @@ def hat_interpolate(site_feats, geom, rows, dhw_grouped, static):
     Differentiable with respect to site_feats.
     """
     dev = dhw_grouped.device
-    out_sh = torch.tensor(static.out_sh, dtype=torch.float32, device=dev)
+    out_sh = constant(static.out_sh, torch.float32, dev)
     levels = []
     for lvl in (1, 2, 3, 4):
-        sh_l = torch.tensor([s // (2 ** lvl) for s in static.out_sh],
-                            dtype=torch.float32, device=dev)
+        sh_l = constant(tuple(s // (2 ** lvl) for s in static.out_sh),
+                        torch.float32, dev)
         pos = (dhw_grouped * ((sh_l - 1.0) / out_sh)).detach()
         levels.append((geom[f"sites{lvl}"], rows[lvl], pos))
     return _HatInterpolate.apply(tuple(levels), *site_feats)

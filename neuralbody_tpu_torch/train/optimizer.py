@@ -95,7 +95,19 @@ class Adam:
         mu = (1 - b1) g + b1 mu;   nu = (1 - b2) g^2 + b2 nu;   count += 1
         param -= schedule(count - 1) * (mu / (1 - b1^count))
                  / (sqrt(nu / (1 - b2^count)) + eps)
+
+    The three numbers that change from step to step (the learning rate and
+    the two bias corrections) are read from a tensor beside the parameters,
+    one row of scalars() a step: an eager step takes its row from a table
+    of the next TABLE_STEPS steps (one host-to-device copy per table), a
+    step captured in a CUDA graph (train/graphs.py) from the graph's own
+    buffer. Both run the same operations, so a graphed step gives an eager
+    step's bits; on the CPU they are the bits of Python-float scalars.
+    step_graph is the captured dispatch that train/step.train_step_scan
+    replays for this optimizer on the card (None until its first call).
     """
+
+    TABLE_STEPS = 64
 
     def __init__(self, params, schedule, clip=40.0, weight_decay=0.0,
                  b1=0.9, b2=0.999, eps=1e-8):
@@ -108,25 +120,61 @@ class Adam:
         self.nu = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                            params)
         self.count = 0
+        self.step_graph = None
+        self._table = None   # (first step, [TABLE_STEPS, 3] scalars)
 
     def load_state_dict(self, state):
         """Take mu, nu (trees of the params' structure) and count, e.g. from
-        utils/transplant.opt_state_from_jax. The tensors move to where this
-        optimizer's state lives."""
-        dev = tree_leaves(self.mu)[0].device
-        self.mu = tree_map(lambda t: t.to(dev, torch.float32), state["mu"])
-        self.nu = tree_map(lambda t: t.to(dev, torch.float32), state["nu"])
+        utils/transplant.opt_state_from_jax. The values are copied into this
+        optimizer's own tensors, which keep their device and their
+        addresses (a captured step reads and writes them there)."""
+        for name in ("mu", "nu"):
+            dst, src = tree_leaves(getattr(self, name)), tree_leaves(state[name])
+            if len(dst) != len(src) or any(d.shape != s.shape
+                                           for d, s in zip(dst, src)):
+                raise ValueError(f"{name} differs in structure from the "
+                                 "optimizer's state")
+            with torch.no_grad():
+                for d, s in zip(dst, src):
+                    d.copy_(s)
         self.count = int(state["count"])
 
+    def scalars(self, n=1):
+        """The learning rate and the two bias corrections of the next n
+        steps, [n, 3] f32 on the CPU: row i is (schedule(t), 1 - b1^(t+1),
+        1 - b2^(t+1)) for t = count + i, computed in double precision as an
+        eager step computes them and rounded to f32 once, as the foreach
+        kernels round a Python scalar."""
+        rows = [(self.schedule(t), 1.0 - self.b1 ** (t + 1),
+                 1.0 - self.b2 ** (t + 1))
+                for t in range(self.count, self.count + n)]
+        return torch.tensor(rows, dtype=torch.float32)
+
+    def _row(self, device):
+        """This step's row of scalars() on `device`, from the table of the
+        next TABLE_STEPS steps, made again when count leaves it."""
+        if (self._table is None or self._table[1].device != device
+                or not 0 <= self.count - self._table[0] < self.TABLE_STEPS):
+            self._table = (self.count,
+                           self.scalars(self.TABLE_STEPS).to(device))
+        return self._table[1][self.count - self._table[0]]
+
     @torch.no_grad()
-    def step(self, params, grads):
+    def step(self, params, grads, scalars=None):
         """Update the tensors of `params` in place from `grads` (a tree of
-        the same structure, every leaf a tensor)."""
+        the same structure, every leaf a tensor) and advance count by one.
+
+        scalars: this step's row of scalars(), a [3] f32 tensor on the
+        params' device (a step captured in a CUDA graph passes its buffer's
+        row and owns its agreement with count); None takes the row of
+        count from the optimizer's own table."""
         p, g = tree_leaves(params), tree_leaves(grads)
         m, v = tree_leaves(self.mu), tree_leaves(self.nu)
         if not len(p) == len(g) == len(m) == len(v):
             raise ValueError("params, grads and state differ in structure")
-        lr = self.schedule(self.count)
+        if scalars is None:
+            scalars = self._row(p[0].device)
+        lr, bc1, bc2 = scalars.unbind()
         self.count += 1
         g = [x.clamp(-self.clip, self.clip) for x in g]
         if self.weight_decay > 0:
@@ -137,8 +185,6 @@ class Adam:
         torch._foreach_mul_(v, self.b2)
         torch._foreach_add_(v, torch._foreach_mul(
             torch._foreach_mul(g, g), 1.0 - self.b2))
-        bc1 = 1.0 - self.b1 ** self.count
-        bc2 = 1.0 - self.b2 ** self.count
         den = torch._foreach_div(v, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)

@@ -8,6 +8,8 @@ optimizer module beside this one) and the BatchNorm running-stat EMA. The
 steps are family-generic: the render function is recovered from the
 settings' type (renderer/dispatch.py). JAX returns new parameters; here the
 step updates the parameter tensors in place, PyTorch's idiom.
+train_step_scan runs G steps in one dispatch: on the card as one CUDA
+graph (train/graphs.py).
 """
 from __future__ import annotations
 
@@ -101,9 +103,8 @@ def train_step(params, bn_stats, opt, batch, settings, device=None,
 
 def train_steps(params, bn_stats, opt, batches, settings, device=None,
                 generator=None):
-    """G steps over a sequence of batches (counterpart of
-    train_step_scan, as a plain loop). Returns (bn_stats, stats stacked
-    over the G steps)."""
+    """G eager train_steps over a sequence of batches, as a plain loop.
+    Returns (bn_stats, stats stacked over the G steps)."""
     stats = []
     for batch in batches:
         bn_stats, s = train_step(params, bn_stats, opt, batch, settings,
@@ -111,6 +112,51 @@ def train_steps(params, bn_stats, opt, batches, settings, device=None,
         stats.append(s)
     return bn_stats, {k: torch.stack([s[k] for s in stats])
                       for k in stats[0]}
+
+
+def scan_slice(batches, i):
+    """Step i of a batch tree whose every leaf has a leading step axis."""
+    return {k: scan_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in batches.items()}
+
+
+def scan_length(batches):
+    """G, the leading step axis that every leaf of a batch tree shares."""
+    steps = {len(t) for t in tree_leaves(batches)}
+    if len(steps) != 1:
+        raise ValueError(f"the batch's leaves have leading axes {steps}, not "
+                         "one step count G")
+    return steps.pop()
+
+
+def train_step_scan(params, bn_stats, opt, batches, settings, device=None,
+                    generator=None):
+    """G optimization steps in one dispatch (counterpart of the JAX
+    package's train_step_scan).
+
+    batches: one batch tree (numpy or tensors) whose every leaf has a
+    leading axis of G steps. On the card (the default) the G steps replay
+    as one CUDA graph of latent_xyzc's train_step, held in opt.step_graph
+    (train/graphs.StepGraph), captured at the first call and again when
+    the shapes, dtypes, settings or the parameters' or moments' tensors
+    change; a failed capture or replay raises. With device="cpu" it runs
+    train_steps' plain loop over the G batches.
+
+    Returns (bn_stats, stats stacked over the G steps). On the card the
+    returned bn_stats are the graph's own buffers, which its next replay
+    overwrites: pass them back in.
+    """
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return train_steps(params, bn_stats, opt,
+                           [scan_slice(batches, i)
+                            for i in range(scan_length(batches))],
+                           settings, device=device, generator=generator)
+    from .graphs import StepGraph   # graphs.py builds on this module
+    if opt.step_graph is None or opt.step_graph.device != device:
+        opt.step_graph = StepGraph(device)
+    return opt.step_graph(params, bn_stats, opt, batches, settings,
+                          generator)
 
 
 def eval_step(params, batch, settings, device=None):

@@ -5,6 +5,8 @@ card is an error, never a silent fall back to the CPU.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -22,6 +24,21 @@ def resolve_device(device=None) -> torch.device:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def constant(value, dtype, device) -> torch.Tensor:
+    """torch.tensor(value, dtype=dtype, device=device) for a number or a
+    tuple of numbers, built once per (value, dtype, device) and shared by
+    every later caller. Device code that reads a Python constant on every
+    call then makes no blocking host-to-device copy after the first one,
+    which is also what lets a CUDA graph capture it. The tensor is shared:
+    never modify it."""
+    return _constant(value, dtype, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(value, dtype, device):
+    return torch.tensor(value, dtype=dtype, device=device)
 
 
 def _leaf(x, device):
