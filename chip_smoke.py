@@ -22,14 +22,25 @@ through their entry points:
     the port's CPU render and against four one-chunk renders; the first
     nerf_train_step's loss and gradients against the same step on the CPU,
     then ten steps with the perturbation on whose loss must fall;
-  * the graphed paths (train/graphs.py), bf16 and f32: the ten training
-    steps as five replays of a two-step StepGraph (train_step_scan's
-    dispatch) against five eager runs of them (the losses, every
-    parameter, Adam moment and BN-stat leaf within twice the eager runs'
-    spread), the kernels a replay launches counted by name in a
-    torch.profiler trace, and a RenderGraph render against eval_step; then
-    both timed beside their eager loops, an eager step's host operations
-    profiled, and the port's bench (neuralbody_tpu_torch/bench.py) run.
+  * the graphed paths (train/graphs.py), bf16 and f32: two replays of a
+    two-step StepGraph (train_step_scan's dispatch) on batches A then B
+    against one eager run of the four steps (the losses, every parameter,
+    Adam moment and BN-stat leaf within GRAPH_TOL, a fixed relative L2
+    tolerance per group), the same graph fed A in its second replay (a
+    stale copy, which the check must put over its limit by STALE_MIN),
+    the kernels a replay launches counted by name in a torch.profiler
+    trace, and a RenderGraph render against eval_step; then both timed
+    beside their eager loops, an eager step's host operations profiled,
+    and the port's bench (neuralbody_tpu_torch/bench.py) run;
+  * the config path, bf16: make_cfg of the 313 config, the registered
+    factories, make_data_loader over two spawned workers (the C++ hat
+    planner in the workers) on a SyntheticDataset of 4 frames x 4 cameras
+    at 512^2, G = 8 batches stacked a dispatch into train_step_scan's
+    graph: a warm epoch of two dispatches held against eager steps on the
+    same batches (CONFIG_TOL), a timed epoch of four (host ms per batch by
+    part, bytes copied per dispatch, dispatch ms, rays/s, one capture in
+    all), two more dispatches in one profile, the second's kernels counted
+    by name.
 
 Each kernel (the hat contraction forward and backward, each with its cell
 lookup and with its scan; the gather-fused sparse conv on the tensor cores
@@ -57,7 +68,6 @@ Exits non-zero with no result line when no CUDA device is present.
 from __future__ import annotations
 
 import concurrent.futures
-import itertools
 import json
 import math
 import os
@@ -130,17 +140,33 @@ MM_PER_MLP = 12           # dense layers of one MLP application
 DECODE_POINTS = 131072    # one chunk of the plan-free latent_xyzc render
 DECODE_LAYERS = ((352, 256), (256, 256), (256, 256), (256, 1), (256, 256),
                  (384, 256), (346, 128), (128, 3))   # decode_raw's (K, N)
-GRAPH_G = 2      # steps a StepGraph replay, replayed five times: ten steps
-# (a replay's trace of ~4,700 kernels; the profiler dropped some of 10,300)
+GRAPH_G = 2      # steps a StepGraph replay: two replays held against
+# eager steps, five (ten steps) for the launches and the falling loss (a
+# replay's trace of ~4,700 kernels; the profiler dropped some of 10,300)
 SCAN_G = 8       # steps a dispatch in scan_timing, as in the bench
 SCAN_ROUNDS = 2  # ABBA rounds of one graphed and one eager dispatch
-# a graph against eager steps: its distance from the nearest of EAGER_RUNS
-# eager runs at most twice the largest distance between two of them (the
-# hat backward's float atomics and index_add_ change their order from run
-# to run; one pair is too few a sample for a leaf of one to three numbers)
-# plus this much of the leaf's scale
-EAGER_RUNS = 5
-NOISE_SCALE = 1e-6
+# A graph against one eager run of the same steps from the same state: per
+# leaf the relative L2 distance ||g - e|| / max(||g||, ||e||) (an equal
+# leaf is at 0), at most the leaf's group's tolerance. The hat backward's
+# float atomics and index_add_ change their order from run to run, and the
+# encoder amplifies that over the steps, so eager runs differ; each
+# tolerance is 4x the farthest pair of eager runs in three calls of 24-32
+# runs each, the larger of bf16's and f32's, measured by
+# tools/graph_noise.py on an H100 80GB HBM3 at 700 W (PERF.md section 2).
+# GRAPH_TOL: graph_vs_eager's four steps ("full" scene); CONFIG_TOL:
+# config_path's two dispatches of G = 8 loader batches ("config" scene,
+# bf16).
+GRAPH_TOL = {"params": 1.5, "mu": 2.8, "nu": 2.1, "bn": 0.17,
+             "loss": 8.6e-6}
+CONFIG_TOL = {"params": 1.4, "mu": 2.7, "nu": 2.4, "bn": 0.82,
+              "loss": 1.2e-3}
+STALE_MIN = 10   # a second replay fed the first's batch (a stale copy)
+# must be over its tolerance by at least this in its worst group
+CONFIG_G = 8         # config_path: steps a dispatch, as in production
+CONFIG_WORKERS = 2   # its loader workers (one pool for both epochs)
+CONFIG_WARM = 2      # dispatches of its warm epoch (the capture)
+CONFIG_TIMED = 4     # dispatches of its timed epoch
+CONFIG_HOST_BATCHES = 8   # batches whose host parts it times
 PRODUCT_KERNEL = re.compile(r"gemm|gemv|splitkreduce", re.IGNORECASE)
 HOST_TOP = 15    # host operations listed by host_profile
 MM_REPLACES = "tools/probes/pallas_enc_interp.py:22"
@@ -305,17 +331,18 @@ def hat_nonzeros(torch, sites, rows, pos):
 
 def profile_step(torch, step, what, mode, step_ms, top=12):
     """Device time of one render or training step by kernel
-    (torch.profiler), and the share of the unprofiled step time the device
-    is busy."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
+    (torch.profiler, tools/trace_loss.device_events: the second of two
+    steps in one profile), and the share of the unprofiled step time the
+    device is busy."""
+    from neuralbody_tpu_torch.tools.trace_loss import device_events
+    from neuralbody_tpu_torch.utils import cuda_build
+    by_name = {}
+    for e in device_events(step, os.path.join(cuda_build.BUILD_DIR,
+                                              f"profile_{what}_{mode}.json")):
+        ms, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + e.get("dur", 0) / 1e3, n + 1)
     # the device's own events (kernels, copies, memsets)
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    rows = [(k, ms, n) for k, (ms, n) in by_name.items() if ms]
     busy = sum(r[1] for r in rows)
     launches = sum(r[2] for r in rows)
     rows.sort(key=lambda r: -r[1])
@@ -369,27 +396,23 @@ def stack_steps(batch, G):
 
 
 def traced_kernels(torch, fn, path):
-    """The kernels fn() launches on the card, read from a torch.profiler
-    trace (CUDA activity; a graph's replay shows each of its kernel nodes):
-    the three hand kernels by name, the conv launches that run as a
-    cluster (grid.y > 1: the split count, which is the cluster's size), the
-    dense products (cuBLAS's gemm, gemv and split-K kernels), and the
-    device's busy ms (kernels, copies and fills)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
+    """The kernels one call of fn() launches on the card, read from a
+    torch.profiler trace (CUDA activity; a graph's replay shows each of its
+    kernel nodes; tools/trace_loss.device_events: fn() runs twice in the
+    profile and the second call is read, since a profile's first records
+    are sometimes lost): the three hand kernels by name, the conv launches
+    that run as a cluster (grid.y > 1: the split count, which is the
+    cluster's size), the dense products (cuBLAS's gemm, gemv and split-K
+    kernels), and the device's busy ms (kernels, copies and fills)."""
+    from neuralbody_tpu_torch.tools.trace_loss import device_events
+    events = device_events(fn, path)
     kernels = [e for e in events if e.get("cat") == "kernel"]
 
     def count(pred):
         return sum(1 for e in kernels if pred(e["name"], e.get("args", {})))
 
     return dict(
-        busy_ms=sum(e.get("dur", 0) for e in events if e.get("cat") in (
-            "kernel", "gpu_memcpy", "gpu_memset")) / 1e3,
+        busy_ms=sum(e.get("dur", 0) for e in events) / 1e3,
         kernels=len(kernels),
         hat_fwd=count(lambda n, a: "hat_interp_kernel" in n),
         hat_bwd=count(lambda n, a: "hat_interp_bwd_kernel" in n),
@@ -399,22 +422,181 @@ def traced_kernels(torch, fn, path):
         products=count(lambda n, a: PRODUCT_KERNEL.search(n) is not None))
 
 
-def noise_rule(torch, graph, eager):
-    """Per (path, tensor) leaf of a graphed run and of EAGER_RUNS eager runs
-    of the same steps: the L2 distance of the graph's from the nearest eager
-    run, the noise floor (the largest distance between two eager runs), and
-    the allowance 2 x floor + NOISE_SCALE x |first eager run|. Returns the
-    rows and those over their allowance."""
-    rows = []
-    for (path, g), *runs in zip(graph, *eager):
-        g = g.detach().float()
-        es = [e.detach().float() for _, e in runs]
-        err = min((g - e).norm().item() for e in es)
-        floor = max((a - b).norm().item()
-                    for a, b in itertools.combinations(es, 2))
-        rows.append((path, err, floor,
-                     2 * floor + NOISE_SCALE * es[0].norm().item()))
-    return rows, [r for r in rows if not r[1] <= r[3]]
+def config_path(torch, dev, card, reset_counts, read_counts, failed):
+    """The config path, bf16: make_cfg of the 313 config (tools/graph_noise
+    config_case "full": SyntheticDataset of 4 frames x 4 cameras at 512^2,
+    1024 rays x 64 samples, 6890 vertices, 5 mm voxels), the registered
+    factories (train/fresh.ConfigRun), make_data_loader over one pool of
+    CONFIG_WORKERS spawned workers (the C++ planner in the workers, each
+    batch with its frame's geometry), G = 8 batches stacked on the host a
+    dispatch, train_step_scan's StepGraph on the card. A warm epoch of
+    CONFIG_WARM dispatches (the capture), a timed epoch of CONFIG_TIMED;
+    then two more dispatches in one profile, the second read. Held: the
+    warm epoch's state against one eager run of its batches
+    (tools/graph_noise.check at CONFIG_TOL), one capture in all, the
+    kernels a step launches, the mean loss of the last dispatch under the
+    first's. Returns the hat forward, hat backward
+    and conv launches counted over the two epochs (at capture) and a
+    replay's kernels per step."""
+    import cv2
+    import numpy as np
+
+    from neuralbody_tpu_torch.datasets.loader import (
+        WorkerPool, _batch_seed, apply_hat_spec, collate, make_data_loader)
+    from neuralbody_tpu_torch.ops import hat_planner_native
+    from neuralbody_tpu_torch.tools import graph_noise
+    from neuralbody_tpu_torch.train.fresh import stack_batches
+    from neuralbody_tpu_torch.train.graphs import WARMUP
+    from neuralbody_tpu_torch.train.optimizer import tree_leaves
+    from neuralbody_tpu_torch.train.step import train_step_scan, train_steps
+    from neuralbody_tpu_torch.utils import cuda_build
+    from neuralbody_tpu_torch.utils.platform import to_device
+
+    G = CONFIG_G
+    t0 = time.perf_counter()
+    cfg, ds = graph_noise.config_case("full", "bfloat16", G,
+                                      CONFIG_WARM * G)
+    dataset_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pool = WorkerPool(ds, CONFIG_WORKERS)
+    try:
+        # started: every worker spawned, its imports done, the dataset
+        # unpickled, one batch through the result queue
+        list(pool.run_epoch(-1, [0] * CONFIG_WORKERS, 1, ds.n_rand, None, 0,
+                            0, CONFIG_WORKERS))
+        pool_start_s = time.perf_counter() - t0
+        run = graph_noise.config_run(cfg, ds, dev, pool)
+        reset_counts()
+        t0 = time.perf_counter()
+        warm = list(run.loader(0))
+        warm_losses = [st["loss"] for st in run.epoch(0, loader=warm)]
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        graph_state = graph_noise.run_state(
+            run.params, run.bn_stats, run.opt, torch.cat(warm_losses))
+        eager_run = graph_noise.config_run(cfg, ds, dev)
+        # the timed epoch: CONFIG_TIMED dispatches, each timed from the
+        # call to its end on the card (the loader reads ep_iter per epoch;
+        # the optimizer's schedule keeps the warm epoch's)
+        cfg.ep_iter = CONFIG_TIMED * G
+        loader = run.loader(1)
+        groups, pending, dispatch_ms, losses = [], [], [], []
+        t0 = time.perf_counter()
+        for batch, _ in loader:
+            pending.append(batch)
+            if len(pending) < G:
+                continue
+            t1 = time.perf_counter()
+            st = run.dispatch(pending)
+            losses.append(st["loss"].tolist())
+            dispatch_ms.append(1e3 * (time.perf_counter() - t1))
+            groups.append(pending)
+            pending = []
+        epoch_s = time.perf_counter() - t0
+        counts = read_counts()
+        captures = run.opt.step_graph.captures
+        trace = traced_kernels(
+            torch, lambda: run.dispatch(groups[-1]),
+            os.path.join(cuda_build.BUILD_DIR, "config_replay.json"))
+    finally:
+        pool.shutdown()
+    per_step = {k: v / G for k, v in trace.items()}
+    copied = sum(t.nbytes for t in tree_leaves(
+        to_device(stack_batches(groups[0]), "cpu")))
+    # a dispatch part by part: the G batches stacked, copied to the card
+    # (pageable, as StepGraph's to_device copies them), then the dispatch
+    # of the copy (the graph's copy-in on the card, its replay, the read)
+    settings = run.settings._replace(
+        hat_rows_caps=tuple(run.hat_state["rows_caps"]))
+    stack_ms, copy_ms, replay_ms = [], [], []
+    for group in groups:
+        t0 = time.perf_counter()
+        stacked = stack_batches(group)
+        t1 = time.perf_counter()
+        on_card = to_device(stacked, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        run.bn_stats, st = train_step_scan(run.params, run.bn_stats, run.opt,
+                                           on_card, settings, device=dev)
+        st["loss"].tolist()
+        stack_ms.append(1e3 * (t1 - t0))
+        copy_ms.append(1e3 * (t2 - t1))
+        replay_ms.append(1e3 * (time.perf_counter() - t2))
+    # a batch's host parts as a worker makes it (here, one thread): the
+    # JPEG decode, the rest of the sample (the rays), collate and the plan
+    spec = make_data_loader(cfg, "train", dataset=ds, epoch=1,
+                            hat_state=run.hat_state)._spec()
+    parts = {k: [] for k in ("decode", "rays", "collate", "plan")}
+    for bi, j in enumerate(loader.indices[:CONFIG_HOST_BATCHES]):
+        i, c = divmod(j, ds.n_cams)
+        t0 = time.perf_counter()
+        cv2.imdecode(np.frombuffer(ds._jpgs[(i, c)], np.uint8),
+                     cv2.IMREAD_COLOR)
+        t1 = time.perf_counter()
+        np.random.seed(_batch_seed(1, bi, loader.seed0))
+        sample = ds[j]
+        t2 = time.perf_counter()
+        batch, _ = collate([sample], ds.n_rand)
+        t3 = time.perf_counter()
+        apply_hat_spec(batch, spec, _batch_seed(1, bi, loader.seed0 + 1))
+        t4 = time.perf_counter()
+        for k, v in (("decode", t1 - t0), ("rays", t2 - t1 - (t1 - t0)),
+                     ("collate", t3 - t2), ("plan", t4 - t3)):
+            parts[k].append(1e3 * v)
+    host_ms = {k: statistics.median(v) for k, v in parts.items()}
+    # the warm epoch's steps, eager, from the seeded state
+    bn, st = train_steps(eager_run.params, eager_run.bn_stats, eager_run.opt,
+                         [b for b, _ in warm], settings, device=dev)
+    eager = graph_noise.run_state(eager_run.params, bn, eager_run.opt,
+                                  st["loss"])
+    check, over = graph_noise.check(graph_state, eager, CONFIG_TOL)
+    # the mean loss of each dispatch, warm and timed
+    means = [statistics.mean(x) for x in
+             [w.tolist() for w in warm_losses] + losses]
+    want = tuple((1 + WARMUP) * G * n for n in (4, 4, 2 * CONV_LAYERS))
+    planner = ("native" if hat_planner_native._LIB is not None
+               else "not loaded")
+    emit(phase="config_path", config=os.path.relpath(graph_noise.CONFIG_313),
+         network=cfg.network_module, renderer=cfg.renderer_module,
+         trainer=cfg.trainer_module, compute_dtype=cfg.tpu.compute_dtype,
+         lr=cfg.train.lr, scheduler=cfg.train.scheduler.type,
+         dataset=dict(frames=ds.n_frames, cams=ds.n_cams, hw=list(ds.hw),
+                      rays=ds.n_rand, out_sh=list(ds.out_sh),
+                      site_caps=list(ds.site_caps)),
+         dataset_s=dataset_s, workers=CONFIG_WORKERS,
+         pool_start_s=pool_start_s, planner=planner,
+         hat_state={k: list(v) if isinstance(v, tuple) else v
+                    for k, v in run.hat_state.items()},
+         steps_per_dispatch=G, warm_dispatches=CONFIG_WARM, warm_s=warm_s,
+         timed_dispatches=len(dispatch_ms), epoch_s=epoch_s,
+         dispatch_ms=dispatch_ms,
+         dispatch_ms_median=statistics.median(dispatch_ms),
+         rays_per_s=len(dispatch_ms) * G * ds.n_rand / epoch_s,
+         h2d_bytes_per_dispatch=copied,
+         stack_ms_median=statistics.median(stack_ms),
+         copy_ms_median=statistics.median(copy_ms),
+         device_batch_dispatch_ms_median=statistics.median(replay_ms),
+         replay_busy_ms=trace["busy_ms"], host_ms_per_batch=host_ms,
+         host_ms_per_batch_total=sum(host_ms.values()),
+         host_batches=CONFIG_HOST_BATCHES, captures=captures,
+         losses=losses, mean_loss_per_dispatch=means,
+         launches_at_capture=counts, launches_expected=want,
+         replay_per_step=per_step, card=card)
+    emit(phase="config_vs_eager", steps=CONFIG_WARM * G, tol=CONFIG_TOL,
+         groups=check, over=len(over),
+         graph_losses=graph_state["loss"][0][1].tolist(),
+         eager_losses=eager["loss"][0][1].tolist())
+    if (counts != want or captures != 1 or planner != "native"
+            or per_step["hat_fwd"] != 4 or per_step["hat_bwd"] != 4
+            or per_step["conv"] != 2 * CONV_LAYERS
+            or not all(math.isfinite(x) for row in losses for x in row)
+            or not means[-1] < means[0]):
+        failed.append(f"config_path: launches {counts} (want {want}), a "
+                      f"replay's per step {per_step}, captures {captures}, "
+                      f"planner {planner}, losses {losses}")
+    if over:
+        failed.append(f"config_path against eager steps: {over[:5]}")
+    return counts, per_step
 
 
 def nerf_family(torch, dev, card, ebatch, rbatch):
@@ -1022,6 +1204,7 @@ def main():
     from neuralbody_tpu_torch.renderer.renderer import (RenderSettings,
                                                         render_density_grid)
     from neuralbody_tpu_torch import bench as port_bench
+    from neuralbody_tpu_torch.tools import graph_noise
     from neuralbody_tpu_torch.train import optimizer
     from neuralbody_tpu_torch.train.graphs import (WARMUP, RenderGraph,
                                                    StepGraph)
@@ -1087,9 +1270,9 @@ def main():
          n_groups=hs["n_groups"], group_size=hs["group_size"],
          rows_caps=list(hs["rows_caps"]))
     t0 = time.perf_counter()
-    tbatch, tstatic = make_batch(n_rays=N_RAYS, n_verts=6890, voxel_size=VOX,
-                                 seed=SEED, hat=True, n_samples=N_SAMPLES,
-                                 hat_perturb=True)
+    # the training batch A, and B (another ray set) for graph_vs_eager
+    (tbatch, tbatch2), tstatic = graph_noise.batch_pair(
+        N_RAYS, 6890, VOX, N_SAMPLES, SEED)
     ths = tstatic["hat"]
     emit(phase="batch", path="train", host_seconds=time.perf_counter() - t0,
          n_groups=ths["n_groups"], rows_caps=list(ths["rows_caps"]))
@@ -1114,6 +1297,7 @@ def main():
     params, _ = fresh_params()
     batch_dev = to_device(batch, dev)
     tbatch_dev = to_device(tbatch, dev)
+    tbatch2_dev = to_device(tbatch2, dev)
     ebatch_dev = to_device(ebatch, dev)
     rbatch_dev = to_device(rbatch, dev)
 
@@ -1395,14 +1579,7 @@ def main():
     # (a) + (c): the main training path, TRAIN_STEPS steps on one batch per
     # mode from the seeded weights, 4 forward and 4 backward hat launches
     # and 17 forward and 17 dx conv launches per step, the loss falling
-    def state_leaves(tp, tbn, opt, step_losses):
-        return ([(f"params/{p}", t) for p, t in leaves(tp)]
-                + [(f"mu/{p}", t) for p, t in leaves(opt.mu)]
-                + [(f"nu/{p}", t) for p, t in leaves(opt.nu)]
-                + [(f"bn/{p}", t) for p, t in leaves(tbn)]
-                + [("loss", torch.as_tensor(step_losses))])
-
-    losses, eager_runs = {}, {}
+    losses = {}
     for mode in modes:
         tp, tbn = fresh_params()
         opt = optimizer.make_optimizer(tp, schedule())
@@ -1417,7 +1594,6 @@ def main():
                                                         before)))
         torch.cuda.synchronize()
         launches[("train", mode)] = read_counts()
-        eager_runs[mode] = [state_leaves(tp, tbn, opt, losses[mode])]
         finite = all(torch.isfinite(p).all() for _, p in leaves(tp))
         emit(phase="train", mode=mode, steps=TRAIN_STEPS, lr=LR,
              losses=losses[mode], launches_per_step=per_step[0],
@@ -1431,10 +1607,14 @@ def main():
             raise AssertionError(f"{mode} training: losses {losses[mode]}")
 
     # -- 5a. the graphed paths: train_step_scan's StepGraph, RenderGraph ----
-    # ten steps as five replays of a two-step graph from the seeded state,
-    # against the ten eager steps above and EAGER_RUNS - 1 more eager runs
-    # (the noise floor); the counters count at capture (the warm-up's and the
-    # capture's launches), a profiled replay shows what the card runs
+    # four steps, [A, A] then [B, B], as two replays of a two-step graph
+    # from the seeded state, against one eager run of the same four steps
+    # (tools/graph_noise.check at GRAPH_TOL); the same graph fed A in its
+    # second replay (a stale copy) must be over that limit by STALE_MIN;
+    # then three more replays of A, the last two in one profile whose
+    # second is read (traced_kernels; ten steps in all). The
+    # counters count at capture (the warm-up's and the capture's launches),
+    # a profiled replay shows what the card runs
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def clusters(convs):
@@ -1445,48 +1625,65 @@ def main():
     # what the graphed paths' checks find fails the run at its end, after
     # the phases that do not depend on them have measured
     graph_replay, eager_trace, failed = {}, {}, []
+    batches_a = stack_steps(tbatch_dev, GRAPH_G)
+    batches_b = stack_steps(tbatch2_dev, GRAPH_G)
     for mode in modes:
         s = settings(mode, ths)
-        for _ in range(EAGER_RUNS - 1):
-            tp, tbn = fresh_params()
-            opt = optimizer.make_optimizer(tp, schedule())
-            tbn, st = train_steps(tp, tbn, opt, [tbatch_dev] * TRAIN_STEPS,
-                                  s, device=dev)
-            eager_runs[mode].append(state_leaves(tp, tbn, opt,
-                                                 st["loss"].tolist()))
+        tp, tbn = fresh_params()
+        opt = optimizer.make_optimizer(tp, schedule())
+        tbn, st = train_steps(tp, tbn, opt, [tbatch_dev] * GRAPH_G
+                              + [tbatch2_dev] * GRAPH_G, s, device=dev)
+        eager = graph_noise.run_state(tp, tbn, opt, st["loss"])
         eager_tp, eager_tbn, eager_opt = tp, tbn, opt
+        # the stale copy: A in both replays
+        tp, tbn = fresh_params()
+        opt = optimizer.make_optimizer(tp, schedule())
+        graph, stale_losses = StepGraph(dev), []
+        for batches in (batches_a, batches_a):
+            tbn, st = graph(tp, tbn, opt, batches, s)
+            stale_losses.append(st["loss"])
+        stale, _ = graph_noise.check(graph_noise.run_state(
+            tp, tbn, opt, torch.cat(stale_losses)), eager, GRAPH_TOL)
+        stale_ratio = max(g["ratio"] for g in stale.values())
+        emit(phase="graph_stale_copy", mode=mode, groups=stale,
+             worst_ratio=stale_ratio, required=STALE_MIN)
+        if not stale_ratio >= STALE_MIN:
+            failed.append(f"{mode} graph fed a stale batch: worst ratio "
+                          f"{stale_ratio} to GRAPH_TOL, not {STALE_MIN}")
+        del graph
         tp, tbn = fresh_params()
         opt = optimizer.make_optimizer(tp, schedule())
         graph = StepGraph(dev)
-        batches = stack_steps(tbatch_dev, GRAPH_G)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        tbn, st = graph(tp, tbn, opt, batches, s)
+        tbn, st = graph(tp, tbn, opt, batches_a, s)
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
         capture_counts = read_counts()
         pool_peak = torch.cuda.max_memory_allocated() - base
         graph_losses = [st["loss"]]
-        for _ in range(TRAIN_STEPS // GRAPH_G - 2):
-            tbn, st = graph(tp, tbn, opt, batches, s)
+        tbn, st = graph(tp, tbn, opt, batches_b, s)
+        graph_losses.append(st["loss"])
+        state = graph_noise.run_state(tp, tbn, opt, torch.cat(graph_losses))
+        groups, over = graph_noise.check(state, eager, GRAPH_TOL)
+        rows = graph_noise.distances(state, eager)
+        for _ in range(TRAIN_STEPS // GRAPH_G - 4):
+            tbn, st = graph(tp, tbn, opt, batches_a, s)
             graph_losses.append(st["loss"])
-        last = {}
+        last = {"bn": tbn}
 
         def replay():
-            last["bn"], last["stats"] = graph(tp, tbn, opt, batches, s)
+            last["bn"], st = graph(tp, last["bn"], opt, batches_a, s)
+            graph_losses.append(st["loss"])
 
         replay = traced_kernels(
             torch, replay,
             os.path.join(cuda_build.BUILD_DIR, f"replay_{mode}.json"))
         tbn = last["bn"]
-        graph_losses = torch.cat(graph_losses
-                                 + [last["stats"]["loss"]]).tolist()
-        rows, over = noise_rule(torch, state_leaves(tp, tbn, opt,
-                                                    graph_losses),
-                                eager_runs[mode])
+        graph_losses = torch.cat(graph_losses).tolist()
         eager_step = traced_kernels(
             torch, lambda: train_step(eager_tp, eager_tbn, eager_opt,
                                       tbatch_dev, s, device=dev),
@@ -1508,33 +1705,24 @@ def main():
                 or per_step["conv_cluster"] != want_clusters
                 or want_clusters == 0
                 or per_step["products"] != eager_step["products"]
-                or eager_step["hat_fwd"] != 4 or eager_step["conv"] != 34):
+                or eager_step["hat_fwd"] != 4 or eager_step["conv"] != 34
+                or graph.captures != 1):
             failed.append(
                 f"{mode} graph: counters {capture_counts}, a replay's "
                 f"kernels per step {per_step}, an eager step's {eager_step}, "
-                f"{want_clusters} cluster launches planned a step")
-        groups = {}
-        for path, err, floor, allow in rows:
-            g = groups.setdefault(path.split("/")[0], dict(
-                leaves=0, zero_floor=0, worst=None))
-            g["leaves"] += 1
-            g["zero_floor"] += floor == 0
-            ratio = err / allow if allow else (0.0 if err == 0 else math.inf)
-            if g["worst"] is None or ratio > g["worst"][0]:
-                g["worst"] = (ratio, path, err, floor, allow)
-        emit(phase="graph_vs_eager", mode=mode, steps=TRAIN_STEPS,
-             graph_losses=graph_losses, eager_losses=losses[mode],
-             eager_runs=EAGER_RUNS, noise_scale=NOISE_SCALE, groups=groups,
-             over=len(over))
+                f"{want_clusters} cluster launches planned a step, "
+                f"{graph.captures} captures")
+        emit(phase="graph_vs_eager", mode=mode, steps=2 * GRAPH_G,
+             graph_losses=graph_losses[:2 * GRAPH_G],
+             eager_losses=eager["loss"][0][1].tolist(), tol=GRAPH_TOL,
+             groups=groups, over=len(over))
         emit(phase="graph_vs_eager_leaves", mode=mode,
-             rows=[dict(path=p, graph_vs_eager=e, eager_vs_eager=f,
-                        allowed=a) for p, e, f, a in rows])
+             rows={g: [(p, d) for p, d in r] for g, r in rows.items()})
         if over or not (all(map(math.isfinite, graph_losses))
                         and graph_losses[-1] < graph_losses[0]):
             failed.append(f"{mode} graph against eager steps: {over[:5]}, "
                           f"losses {graph_losses}")
-        del graph, batches, eager_tp, eager_tbn, eager_opt
-        eager_runs[mode] = None
+        del graph, eager_tp, eager_tbn, eager_opt
         torch.cuda.empty_cache()
 
     render_graphs, render_replay = {}, {}
@@ -2028,6 +2216,12 @@ def main():
             or not line["broadcast_4096_rays_per_s"] > 0):
         raise AssertionError(f"bench line: {line}")
 
+    # -- 6a. the config path: config, factories, loader workers, graph ------
+    torch.cuda.empty_cache()
+    config_counts, config_replay = config_path(torch, dev, card,
+                                               reset_counts, read_counts,
+                                               failed)
+
     # -- 6b. the NeRF baseline family and the dense product ------------------
     torch.cuda.empty_cache()
     nerf_kernels = nerf_family(torch, dev, card, ebatch, rbatch)
@@ -2052,7 +2246,13 @@ def main():
                 "replay_launches_per_step": graph_replay[mode][
                     "hat_fwd" if kind == "fwd" else "hat_bwd"],
                 "replay_launches_per_render": render_replay[mode][
-                    "hat_fwd" if kind == "fwd" else "hat_bwd"]})
+                    "hat_fwd" if kind == "fwd" else "hat_bwd"],
+                # the config path runs in bf16 only
+                "config_path_launches": (
+                    config_counts[i] if mode == "bf16" else None),
+                "config_path_replay_launches_per_step": (
+                    config_replay["hat_fwd" if kind == "fwd" else "hat_bwd"]
+                    if mode == "bf16" else None)})
     # the conv kernel's forward launches: 17 per encode in every forward
     # path and in each training step; its dx launches: 17 per training step
     # (34 counted per step above)
@@ -2075,7 +2275,14 @@ def main():
                 # one kernel name: a replay's forward and dx launches together
                 "replay_launches_per_step": graph_replay[mode]["conv"],
                 "replay_launches_per_render": (
-                    render_replay[mode]["conv"] if kind == "fwd" else 0)})
+                    render_replay[mode]["conv"] if kind == "fwd" else 0),
+                "config_path_launches": (
+                    config_counts[2] // 2 if mode == "bf16" else None),
+                "config_path_replay_launches_per_step": (
+                    config_replay["conv"] if mode == "bf16" else None)})
+    for k in nerf_kernels:   # the config path trains latent_xyzc only
+        k.update(config_path_launches=None,
+                 config_path_replay_launches_per_step=None)
     kernels += nerf_kernels
     if failed:
         raise AssertionError("; ".join(failed))

@@ -1,12 +1,27 @@
 """neuralbody_tpu_torch: the PyTorch/CUDA port of neuralbody_tpu for an
 NVIDIA H100.
 
-It mirrors the JAX package's layout (ops/, models/, renderer/, train/,
-utils/) and imports neither JAX nor the JAX package. It covers the
-latent_xyzc model on the host-planned hat path: the forward render
-(train/step.py:eval_step) and the training step (train/step.py:train_step,
-with train/optimizer.py). The hat contraction and its backward run as
-hand-written CUDA kernels (csrc/hat_interp.cu, ops/hat_kernel.py). Entry
-points run on the card unless the caller passes device="cpu", where every
-kernel's plain PyTorch version runs instead.
+It mirrors the JAX package's layout and imports neither JAX nor the JAX
+package. What it holds:
+
+  * config/: CfgNode, make_cfg (parent_cfg, CLI opts, the vis_* overlays)
+    and the plugin registry; the YAMLs under configs/ load unchanged.
+  * datasets/: the ZJU-MoCap multi-view and People-Snapshot monocular
+    datasets, their samplers and ray sampling, and the loader
+    (make_data_loader) with its spawned workers.
+  * models/: latent_xyzc (SparseConvNet encoder + decode MLP) and the NeRF
+    baseline, with their registered factories.
+  * ops/: the sparse-conv rulebook and convs, the hat planner (numpy, and
+    C++ in csrc/hat_planner.cpp) and hat interpolation, compositing,
+    sampling; the hand-written CUDA kernels' wrappers (hat_kernel,
+    conv_kernel, dense_kernel over csrc/*.cu).
+  * renderer/: latent_xyzc's hat-path and plan-free renders, the NeRF
+    baseline's coarse + fine render, their settings factories.
+  * train/: train_step, eval_step and the NeRF steps, Adam, the CUDA graphs
+    of the G-step dispatch (train_step_scan) and of a hat render, and
+    fresh.py, training from a config through the datasets and the loader.
+  * bench.py: the training throughput bench (broadcast half).
+
+Entry points run on the card unless the caller passes device="cpu", where
+every kernel's plain PyTorch version runs instead.
 """

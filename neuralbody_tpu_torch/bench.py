@@ -8,8 +8,9 @@ Broadcast half: one host-planned batch, expanded on the device once
 dispatch of train_step_scan (on the card, a CUDA graph of eight steps): one
 warm-up dispatch, then n_iters dispatches and one scalar read at the end.
 The fresh half (loader workers building new batches, which fills `value`,
-`vs_baseline` and `fresh_over_broadcast`) needs the port's data loader;
-until it exists those keys are null.
+`vs_baseline` and `fresh_over_broadcast`) comes with the device geometry
+bank and the prefetcher (ROADMAP.md section 1, item 5); until then those
+keys are null.
 
     python -m neuralbody_tpu_torch.bench
 
@@ -26,6 +27,7 @@ versions, for tests, and then reports no device number.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -80,15 +82,14 @@ def _median_s(fn, device, runs):
     return statistics.median(times)
 
 
-def _busy_s(fn, device):
-    """Device time of fn()'s kernels, copies and fills (torch.profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        _sync(device)
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e6
+def _busy_s(fn):
+    """Device time of one fn()'s kernels, copies and fills (torch.profiler,
+    tools/trace_loss.device_events: the second of two calls in one
+    profile)."""
+    from .tools.trace_loss import device_events
+    from .utils import cuda_build
+    return sum(e.get("dur", 0) for e in device_events(
+        fn, os.path.join(cuda_build.BUILD_DIR, "bench_busy.json"))) / 1e6
 
 
 def card_name():
@@ -161,7 +162,7 @@ def measure_broadcast(n_rays=N_RAYS, n_iters=20, pre_expand=True,
         render(params, batch, settings)
         out["hat_render_graph_rays_per_s"] = n_rays / _median_s(
             lambda: render(params, batch, settings), device, RENDERS)
-        out["device_busy_share"] = _busy_s(dispatch, device) / (dt / n_iters)
+        out["device_busy_share"] = _busy_s(dispatch) / (dt / n_iters)
     return out
 
 

@@ -1,2 +1,3 @@
-"""Models: the SparseConvNet encoder, the latent_xyzc network and dense
-layer helpers."""
+"""Models: the SparseConvNet encoder, the latent_xyzc network, the NeRF
+baseline and dense layer helpers."""
+from . import latent_xyzc, nerf  # noqa: F401  (registers plugins)

@@ -7,7 +7,8 @@
   * density/color MLP with per-frame 128-d appearance codes
 
 Parameters are a plain dict of tensors keyed like the JAX pytree; points
-are rows [N, C].
+are rows [N, C]. The config-driven factories are registered as
+"model_static" and "network" under "latent_xyzc".
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..config import register
 from ..ops.embedder import positional_encoding
 from ..ops.grid_sample import multiscale_grid_sample
 from ..ops.sparse_conv import scatter_vertex_codes, site_trilinear_sample
@@ -177,3 +179,34 @@ def calculate_density_color(params, wpts, viewdir, volumes, frame,
         gc = get_grid_coords(ppts, frame["bounds"], voxel_size, static.out_sh)
         feat = interpolate_features(gc, volumes)
     return decode_raw(params, feat, wpts, viewdir, frame, static)
+
+
+@register("model_static", "latent_xyzc")
+def make_static(cfg, dataset):
+    """Static model spec from the dataset's sequence geometry (static grid
+    shape + per-level site capacities)."""
+    geo = dataset.geo
+    return ModelStatic(
+        encoder=sparse_conv_net.EncoderStatic(
+            out_sh=geo.out_sh, site_caps=geo.site_caps,
+            compute_dtype=str(cfg.tpu.compute_dtype)),
+        xyz_res=cfg.xyz_res, view_res=cfg.view_res)
+
+
+@register("network", "latent_xyzc")
+def make(cfg):
+    """Factory: (init_fn, module). init_fn(gen, device=None) draws the
+    weights from the torch.Generator `gen` (see init)."""
+    def init_fn(gen, device=None):
+        return init(
+            gen,
+            num_train_frame=cfg.num_train_frame,
+            nv=cfg.nv,
+            code_dim=cfg.code_dim,
+            latent_dim=cfg.latent_dim,
+            xyz_res=cfg.xyz_res,
+            view_res=cfg.view_res,
+            device=device,
+        )
+    import sys
+    return init_fn, sys.modules[__name__]

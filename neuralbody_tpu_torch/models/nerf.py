@@ -11,9 +11,8 @@ the JAX package's does (on the card the product splits each f32 operand
 into two TF32 parts for the tensor cores and sums in f32; the ops module's
 note has the error).
 
-The config-driven factories of the JAX file (`@register("network", "nerf")`
-and its siblings) come with the port of the config system and the training
-harness.
+The config-driven factories are registered as "model_static" and "network"
+under "nerf" and "nerf_mesh".
 """
 from __future__ import annotations
 
@@ -21,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..config import register
 from ..ops.dense_kernel import linear
 from ..ops.embedder import embed_dim, positional_encoding
 from ..utils.platform import resolve_device, to_device
@@ -95,3 +95,42 @@ def apply_mlp(params, pts, viewdirs, st: NerfStatic):
     h = _dense(params["views_linear"], h, relu=True)
     rgb = _dense(params["rgb_linear"], h)
     return torch.cat([rgb, alpha], dim=-1)
+
+
+@register("model_static", "nerf")
+def make_static(cfg, dataset):
+    """The NeRF baseline has no voxel encoder: its statics live entirely in
+    the renderer settings (volume_renderer.make_volume_renderer)."""
+    return None
+
+
+@register("network", "nerf")
+def make(cfg):
+    """Factory: (init_fn, module). init_fn(gen, device=None) draws the
+    coarse and (with N_importance > 0) the fine MLP from the
+    torch.Generator `gen`."""
+    st = NerfStatic(depth=cfg.netdepth, width=cfg.netwidth,
+                    xyz_res=cfg.xyz_res, view_res=cfg.view_res,
+                    use_viewdirs=cfg.use_viewdirs)
+    st_fine = NerfStatic(depth=cfg.netdepth_fine, width=cfg.netwidth_fine,
+                         xyz_res=cfg.xyz_res, view_res=cfg.view_res,
+                         use_viewdirs=cfg.use_viewdirs)
+
+    def init_fn(gen, device=None):
+        return init(gen, st, st_fine if cfg.N_importance > 0 else None,
+                    device=device)
+
+    import sys
+    return init_fn, sys.modules[__name__]
+
+
+@register("model_static", "nerf_mesh")
+def make_static_mesh(cfg, dataset):
+    return None
+
+
+@register("network", "nerf_mesh")
+def make_mesh_net(cfg):
+    """Density-only NeRF for mesh extraction: the nerf family's parameter
+    tree, so a trained nerf checkpoint loads directly."""
+    return make(cfg)

@@ -16,8 +16,9 @@ features through one autograd Function around the four levels, whose
 backward is the hat kernel's backward (the JAX package's custom VJP,
 neuralbody_tpu/ops/pallas_hat.py).
 
-The host half calls the numpy planner directly (the C++ planner binding
-comes with the data loader).
+Once the static sizes are known the host half plans in C++
+(ops/hat_planner_native.py); the first batches, which derive those sizes,
+and a batch that overflows them (for numpy's error message) plan in numpy.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from ..utils.platform import constant
 from .hat_kernel import hat_interp_level, hat_interp_level_bwd
 
 # ---------------------------------------------------------------------------
-# host: planning (numpy)
+# host: planning (numpy; steady-state path dispatches to the C++ planner)
 # ---------------------------------------------------------------------------
 
 
@@ -84,6 +85,20 @@ def plan_hat_groups(dhw_pts, geom, out_sh, site_caps, group_size=128,
       seg_cum{l}  [ngrp, segcap_l]   inclusive cumulative segment lengths
       rows_caps, seg_caps, n_groups  the static sizes used
     """
+    if (rows_caps is not None and n_groups is not None
+            and seg_caps is not None and tuple(levels) == (1, 2, 3, 4)):
+        # the C++ planner, built at first use. A failed build raises with
+        # the compiler's message: the numpy planner takes about ten times
+        # as long a batch, and a run on it would silently be another system
+        # (the JAX package warns and falls back)
+        from . import hat_planner_native
+        plan = hat_planner_native.plan_hat_segments_native(
+            dhw_pts, geom, out_sh, site_caps, group_size, tile,
+            rows_caps, seg_caps, n_groups)
+        if plan is not None:
+            return plan
+        # overflow: fall through to numpy for the informative error
+
     P = group_size
     s1 = _level_scale(out_sh, 1)
     pos1 = dhw_pts * s1

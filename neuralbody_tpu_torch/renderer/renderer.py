@@ -13,6 +13,9 @@ zero-fills. Two paths:
     (site_interp=True) or through the densified volumes (the reference's
     grid_sample). render_density_grid, the mesh path, reads the densified
     volumes too.
+
+The config-driven settings factories are registered as "renderer" under
+"if_clight_renderer", "_mmsk", "_msk" and "if_mesh_renderer".
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..config import register
 from ..models import latent_xyzc as lx
 from ..models import sparse_conv_net
 from ..models.nn_utils import mxu_dtype
@@ -338,3 +342,44 @@ def render_density_grid(params, batch, settings: RenderSettings,
                                  vols, frame, s.model, s.voxel_size)[:, 0]
             for p0 in range(0, P, pt_chunk)]))
     return torch.stack(outs)
+
+
+# ---------------------------------------------------------------------------
+# registered renderer factories (config-driven harness entry points)
+# ---------------------------------------------------------------------------
+
+def _base_settings(cfg, model_static, **over):
+    kw = dict(
+        model=model_static,
+        voxel_size=tuple(cfg.voxel_size),
+        n_samples=cfg.N_samples,
+        perturb=bool(cfg.perturb),
+        white_bkgd=bool(cfg.white_bkgd),
+        raw_noise_std=float(cfg.raw_noise_std),
+        chunk_rays=int(cfg.tpu.chunk_rays),
+        img_hw=(int(cfg.H * cfg.ratio), int(cfg.W * cfg.ratio)),
+    )
+    kw.update(over)
+    return RenderSettings(**kw)
+
+
+@register("renderer", "if_clight_renderer")
+def make_clight(cfg, model_static):
+    return _base_settings(cfg, model_static)
+
+
+@register("renderer", "if_clight_renderer_mmsk")
+def make_clight_mmsk(cfg, model_static):
+    return _base_settings(cfg, model_static,
+                          hull_views=len(cfg.training_view))
+
+
+@register("renderer", "if_clight_renderer_msk")
+def make_clight_msk(cfg, model_static):
+    return _base_settings(cfg, model_static, hull_views=1,
+                          hull_mode="snapshot")
+
+
+@register("renderer", "if_mesh_renderer")
+def make_mesh(cfg, model_static):
+    return _base_settings(cfg, model_static)

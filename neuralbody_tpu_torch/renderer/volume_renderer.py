@@ -3,9 +3,8 @@
 stratified pass, inverse-CDF importance resampling, fine pass, the coarse
 outputs kept as rgb0/disp0/acc0 for the auxiliary loss.
 
-The config-driven factories of the JAX file (`@register("renderer",
-"volume_renderer")` and `"volume_mesh_renderer"`) come with the port of the
-config system and the training harness.
+The config-driven settings factories are registered as "renderer" under
+"volume_renderer" and "volume_mesh_renderer".
 """
 from __future__ import annotations
 
@@ -13,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..config import register
 from ..models import nerf
 from ..ops.compositing import raw2outputs
 from ..ops.ray_ops import stratified_z_vals
@@ -123,3 +123,29 @@ def render_nerf_density_grid(params, batch, settings: NerfRenderSettings,
                                       batch["pts"][b, p0:p0 + chunk], s.model)
                    for p0 in range(0, P, chunk)])
         for b in range(B)])
+
+
+@register("renderer", "volume_mesh_renderer")
+def make_volume_mesh_renderer(cfg, model_static):
+    st = nerf.NerfStatic(depth=cfg.netdepth, width=cfg.netwidth,
+                         xyz_res=cfg.xyz_res, view_res=cfg.view_res)
+    return NerfRenderSettings(
+        model=st, n_samples=cfg.N_samples, n_importance=cfg.N_importance,
+        perturb=False, white_bkgd=bool(cfg.white_bkgd),
+        chunk_rays=int(cfg.tpu.chunk_rays))
+
+
+@register("renderer", "volume_renderer")
+def make_volume_renderer(cfg, model_static):
+    st = nerf.NerfStatic(depth=cfg.netdepth, width=cfg.netwidth,
+                         xyz_res=cfg.xyz_res, view_res=cfg.view_res)
+    st_fine = nerf.NerfStatic(depth=cfg.netdepth_fine,
+                              width=cfg.netwidth_fine,
+                              xyz_res=cfg.xyz_res, view_res=cfg.view_res)
+    return NerfRenderSettings(
+        model=st, model_fine=st_fine,
+        n_samples=cfg.N_samples, n_importance=cfg.N_importance,
+        perturb=bool(cfg.perturb), lindisp=bool(cfg.lindisp),
+        white_bkgd=bool(cfg.white_bkgd),
+        raw_noise_std=float(cfg.raw_noise_std),
+        chunk_rays=int(cfg.tpu.chunk_rays))
