@@ -35,12 +35,18 @@ through their entry points:
   * the config path, bf16: make_cfg of the 313 config, the registered
     factories, make_data_loader over two spawned workers (the C++ hat
     planner in the workers) on a SyntheticDataset of 4 frames x 4 cameras
-    at 512^2, G = 8 batches stacked a dispatch into train_step_scan's
-    graph: a warm epoch of two dispatches held against eager steps on the
-    same batches (CONFIG_TOL), a timed epoch of four (host ms per batch by
-    part, bytes copied per dispatch, dispatch ms, rays/s, one capture in
-    all), two more dispatches in one profile, the second's kernels counted
-    by name.
+    at 512^2, G = 8 batches a dispatch. Banked (the default): each frame's
+    geometry in a device GeomBank, each group staged by the prefetcher
+    (pinned sets, a side stream) for train_step_scan_banked's graph: a
+    warm epoch of two dispatches held against eager steps on the same
+    batches (CONFIG_TOL), a timed epoch of four (dispatch ms, rays/s, bytes
+    copied a dispatch, bank installs and bytes, one capture in all), an
+    epoch of two whose second dispatch is traced (kernels by name, busy
+    share), another traced whole (its host-to-device copies and how much
+    of them kernels on another stream cover). Then, on the same pool, the
+    stacked path (bank=False: each group stacked on the host) timed the
+    same way, and the bench's fresh half (bench.measure_fresh: 2 warm and
+    12 timed dispatches), whose rays/s fill the bench line's `value`.
 
 Each kernel (the hat contraction forward and backward, each with its cell
 lookup and with its scan; the gather-fused sparse conv on the tensor cores
@@ -167,6 +173,8 @@ CONFIG_WORKERS = 2   # its loader workers (one pool for both epochs)
 CONFIG_WARM = 2      # dispatches of its warm epoch (the capture)
 CONFIG_TIMED = 4     # dispatches of its timed epoch
 CONFIG_HOST_BATCHES = 8   # batches whose host parts it times
+CONFIG_H2D_MAX = 10e6     # bytes a banked dispatch may copy to the card
+FRESH_DISPATCHES = 12     # the bench's fresh half: its timed dispatches
 PRODUCT_KERNEL = re.compile(r"gemm|gemv|splitkreduce", re.IGNORECASE)
 HOST_TOP = 15    # host operations listed by host_profile
 MM_REPLACES = "tools/probes/pallas_enc_interp.py:22"
@@ -403,16 +411,19 @@ def traced_kernels(torch, fn, path):
     are sometimes lost): the three hand kernels by name, the conv launches
     that run as a cluster (grid.y > 1: the split count, which is the
     cluster's size), the dense products (cuBLAS's gemm, gemv and split-K
-    kernels), and the device's busy ms (kernels, copies and fills)."""
-    from neuralbody_tpu_torch.tools.trace_loss import device_events
+    kernels), and the device's busy ms and busy share (trace_loss.busy_share:
+    the union of the kernels', copies' and fills' intervals on every stream,
+    over the span from the first to the last)."""
+    from neuralbody_tpu_torch.tools.trace_loss import busy_share, device_events
     events = device_events(fn, path)
     kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy, _, share = busy_share(events)
 
     def count(pred):
         return sum(1 for e in kernels if pred(e["name"], e.get("args", {})))
 
     return dict(
-        busy_ms=sum(e.get("dur", 0) for e in events) / 1e3,
+        busy_ms=busy / 1e3, busy_share=share,
         kernels=len(kernels),
         hat_fwd=count(lambda n, a: "hat_interp_kernel" in n),
         hat_bwd=count(lambda n, a: "hat_interp_bwd_kernel" in n),
@@ -422,30 +433,66 @@ def traced_kernels(torch, fn, path):
         products=count(lambda n, a: PRODUCT_KERNEL.search(n) is not None))
 
 
-def config_path(torch, dev, card, reset_counts, read_counts, failed):
+def timed_epoch(epoch):
+    """Run an epoch's dispatches, each read back (its losses) as it comes:
+    (the losses of each, ms from the last read to this one, the epoch's
+    seconds)."""
+    losses, ms = [], []
+    t0 = last = time.perf_counter()
+    for st in epoch:
+        losses.append(st["loss"].tolist())
+        now = time.perf_counter()
+        ms.append(1e3 * (now - last))
+        last = now
+    return losses, ms, last - t0
+
+
+def start_pool(ds):
+    """A started loader pool over ds (every worker spawned, its imports
+    done, the dataset unpickled, one batch through the result queue) and
+    the seconds that took."""
+    from neuralbody_tpu_torch.datasets.loader import WorkerPool
+    t0 = time.perf_counter()
+    pool = WorkerPool(ds, CONFIG_WORKERS)
+    try:
+        list(pool.run_epoch(-1, [0] * CONFIG_WORKERS, 1, ds.n_rand, None, 0,
+                            0, CONFIG_WORKERS))
+    except BaseException:
+        pool.shutdown()
+        raise
+    return pool, time.perf_counter() - t0
+
+
+def config_path(torch, dev, card, cfg, ds, pool, reset_counts, read_counts,
+                failed):
     """The config path, bf16: make_cfg of the 313 config (tools/graph_noise
     config_case "full": SyntheticDataset of 4 frames x 4 cameras at 512^2,
     1024 rays x 64 samples, 6890 vertices, 5 mm voxels), the registered
-    factories (train/fresh.ConfigRun), make_data_loader over one pool of
-    CONFIG_WORKERS spawned workers (the C++ planner in the workers, each
-    batch with its frame's geometry), G = 8 batches stacked on the host a
-    dispatch, train_step_scan's StepGraph on the card. A warm epoch of
-    CONFIG_WARM dispatches (the capture), a timed epoch of CONFIG_TIMED;
-    then two more dispatches in one profile, the second read. Held: the
-    warm epoch's state against one eager run of its batches
-    (tools/graph_noise.check at CONFIG_TOL), one capture in all, the
-    kernels a step launches, the mean loss of the last dispatch under the
-    first's. Returns the hat forward, hat backward
-    and conv launches counted over the two epochs (at capture) and a
-    replay's kernels per step."""
+    factories (train/fresh.ConfigRun), make_data_loader over `pool`
+    (CONFIG_WORKERS spawned workers, the C++ planner in the workers), G = 8
+    batches a dispatch. Banked (the default): each frame's geometry in a
+    device GeomBank, each group staged by the prefetcher (pinned sets, a
+    side stream) for train_step_scan_banked's StepGraph. A warm epoch of
+    CONFIG_WARM dispatches (the capture), a timed epoch of CONFIG_TIMED,
+    then an epoch of two whose second dispatch is traced, and another of
+    two traced whole for its host-to-device copies. Then the stacked
+    path (bank=False) on the same pool and plan sizes: one warm dispatch
+    (its capture) and a timed epoch of CONFIG_TIMED; and, apart, the parts
+    of a stacked dispatch. Held: the banked warm epoch's
+    state against one eager run of its batches (tools/graph_noise.check at
+    CONFIG_TOL), one capture a path, the kernels a banked step launches, the
+    mean loss of the last banked dispatch under the first's, a banked
+    dispatch's copy under 10 MB. Returns the hat forward, hat backward,
+    conv and conv dx launches counted over the banked epochs (at capture)
+    and a banked replay's kernels per step."""
     import cv2
     import numpy as np
 
     from neuralbody_tpu_torch.datasets.loader import (
-        WorkerPool, _batch_seed, apply_hat_spec, collate, make_data_loader)
-    from neuralbody_tpu_torch.ops import hat_planner_native
+        _batch_seed, apply_hat_spec, collate, make_data_loader)
+    from neuralbody_tpu_torch.ops import conv_kernel, hat_planner_native
     from neuralbody_tpu_torch.tools import graph_noise
-    from neuralbody_tpu_torch.train.fresh import stack_batches
+    from neuralbody_tpu_torch.train.fresh import stack_batches, with_geom
     from neuralbody_tpu_torch.train.graphs import WARMUP
     from neuralbody_tpu_torch.train.optimizer import tree_leaves
     from neuralbody_tpu_torch.train.step import train_step_scan, train_steps
@@ -453,79 +500,105 @@ def config_path(torch, dev, card, reset_counts, read_counts, failed):
     from neuralbody_tpu_torch.utils.platform import to_device
 
     G = CONFIG_G
+    cfg.ep_iter = CONFIG_WARM * G
+    run = graph_noise.config_run(cfg, ds, dev, pool)
+    reset_counts()
     t0 = time.perf_counter()
-    cfg, ds = graph_noise.config_case("full", "bfloat16", G,
-                                      CONFIG_WARM * G)
-    dataset_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pool = WorkerPool(ds, CONFIG_WORKERS)
-    try:
-        # started: every worker spawned, its imports done, the dataset
-        # unpickled, one batch through the result queue
-        list(pool.run_epoch(-1, [0] * CONFIG_WORKERS, 1, ds.n_rand, None, 0,
-                            0, CONFIG_WORKERS))
-        pool_start_s = time.perf_counter() - t0
-        run = graph_noise.config_run(cfg, ds, dev, pool)
-        reset_counts()
-        t0 = time.perf_counter()
-        warm = list(run.loader(0))
-        warm_losses = [st["loss"] for st in run.epoch(0, loader=warm)]
+    warm = list(run.loader(0))
+    warm_losses = [st["loss"] for st in run.epoch(0, loader=warm)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    graph_state = graph_noise.run_state(
+        run.params, run.bn_stats, run.opt, torch.cat(warm_losses))
+    # the timed epoch (the loader reads ep_iter per epoch; the optimizer's
+    # schedule keeps the warm epoch's)
+    cfg.ep_iter = CONFIG_TIMED * G
+    losses, dispatch_ms, epoch_s = timed_epoch(run.epoch(1))
+    counts = read_counts() + (conv_kernel.CONV_DX_LAUNCHES,)
+    captures = run.opt.step_graph.captures
+    # an epoch of two dispatches, the second traced: its kernels by name,
+    # its copies, and the card's busy share (an interval union)
+    cfg.ep_iter = 2 * G
+    epoch = run.epoch(2)
+    path = os.path.join(cuda_build.BUILD_DIR, "config_replay.json")
+    trace = traced_kernels(torch, lambda: next(epoch), path)
+    for _ in epoch:
+        pass
+    # the staging copies of an epoch of two dispatches, all in one profile
+    # (the prefetcher stages ahead, so one dispatch's copies run during
+    # the dispatch before it)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in run.epoch(3):
+            pass
         torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        graph_state = graph_noise.run_state(
-            run.params, run.bn_stats, run.opt, torch.cat(warm_losses))
-        eager_run = graph_noise.config_run(cfg, ds, dev)
-        # the timed epoch: CONFIG_TIMED dispatches, each timed from the
-        # call to its end on the card (the loader reads ep_iter per epoch;
-        # the optimizer's schedule keeps the warm epoch's)
-        cfg.ep_iter = CONFIG_TIMED * G
-        loader = run.loader(1)
-        groups, pending, dispatch_ms, losses = [], [], [], []
-        t0 = time.perf_counter()
-        for batch, _ in loader:
-            pending.append(batch)
-            if len(pending) < G:
-                continue
-            t1 = time.perf_counter()
-            st = run.dispatch(pending)
-            losses.append(st["loss"].tolist())
-            dispatch_ms.append(1e3 * (time.perf_counter() - t1))
-            groups.append(pending)
-            pending = []
-        epoch_s = time.perf_counter() - t0
-        counts = read_counts()
-        captures = run.opt.step_graph.captures
-        trace = traced_kernels(
-            torch, lambda: run.dispatch(groups[-1]),
-            os.path.join(cuda_build.BUILD_DIR, "config_replay.json"))
-    finally:
-        pool.shutdown()
-    per_step = {k: v / G for k, v in trace.items()}
+    path = os.path.join(cuda_build.BUILD_DIR, "config_copies.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        h2d = h2d_overlap(json.load(f)["traceEvents"])
+    per_step = {k: v / G for k, v in trace.items() if k != "busy_share"}
+    banked = dict(
+        timed_dispatches=len(dispatch_ms), epoch_s=epoch_s,
+        dispatch_ms=dispatch_ms,
+        dispatch_ms_median=statistics.median(dispatch_ms),
+        rays_per_s=len(dispatch_ms) * G * ds.n_rand / epoch_s,
+        h2d_bytes_per_dispatch=run.staging.set_bytes,
+        staging_leaves=run.staging.leaves, staging_sets=run.staging.size,
+        staging_copies=run.staging.copies,
+        bank_installs=run.bank.installs, bank_bytes=run.bank.nbytes,
+        bank_rows=run.bank.capacity, traced_busy_share=trace["busy_share"],
+        epoch_of_two_h2d=h2d, captures=captures)
+    hat_state = dict(run.hat_state)
+    state = (run.params, run.bn_stats, run.opt)
+    del run, epoch
+    torch.cuda.empty_cache()
+
+    # the stacked path on the same pool and plan sizes
+    stacked = graph_noise.config_run(cfg, ds, dev, pool, bank=False)
+    stacked.hat_state.update(hat_state)
+    warm_geom = [with_geom(b, m, pool.geom_cache) for b, m in warm]
+    float(stacked.dispatch(warm_geom[:G])["loss"][-1])    # its capture
+    cfg.ep_iter = CONFIG_TIMED * G
+    s_losses, s_ms, s_epoch_s = timed_epoch(stacked.epoch(1))
     copied = sum(t.nbytes for t in tree_leaves(
-        to_device(stack_batches(groups[0]), "cpu")))
-    # a dispatch part by part: the G batches stacked, copied to the card
-    # (pageable, as StepGraph's to_device copies them), then the dispatch
-    # of the copy (the graph's copy-in on the card, its replay, the read)
-    settings = run.settings._replace(
-        hat_rows_caps=tuple(run.hat_state["rows_caps"]))
+        to_device(stack_batches(warm_geom[:G]), "cpu")))
+    # a stacked dispatch part by part: the G batches stacked, copied to the
+    # card (pageable, as StepGraph's to_device copies them), then the
+    # dispatch of the copy (the graph's copy-in, its replay, the read)
+    settings = stacked.settings._replace(
+        hat_rows_caps=tuple(hat_state["rows_caps"]))
     stack_ms, copy_ms, replay_ms = [], [], []
-    for group in groups:
+    for group in (warm_geom[:G], warm_geom[G:]):
         t0 = time.perf_counter()
-        stacked = stack_batches(group)
+        on_host = stack_batches(group)
         t1 = time.perf_counter()
-        on_card = to_device(stacked, dev)
+        on_card = to_device(on_host, dev)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        run.bn_stats, st = train_step_scan(run.params, run.bn_stats, run.opt,
-                                           on_card, settings, device=dev)
+        stacked.bn_stats, st = train_step_scan(
+            stacked.params, stacked.bn_stats, stacked.opt, on_card, settings,
+            device=dev)
         st["loss"].tolist()
         stack_ms.append(1e3 * (t1 - t0))
         copy_ms.append(1e3 * (t2 - t1))
         replay_ms.append(1e3 * (time.perf_counter() - t2))
+    stacked_row = dict(
+        timed_dispatches=len(s_ms), epoch_s=s_epoch_s, dispatch_ms=s_ms,
+        dispatch_ms_median=statistics.median(s_ms),
+        rays_per_s=len(s_ms) * G * ds.n_rand / s_epoch_s,
+        h2d_bytes_per_dispatch=copied,
+        stack_ms_median=statistics.median(stack_ms),
+        copy_ms_median=statistics.median(copy_ms),
+        device_batch_dispatch_ms_median=statistics.median(replay_ms),
+        captures=stacked.opt.step_graph.captures, losses=s_losses)
+    del stacked
+    torch.cuda.empty_cache()
+
     # a batch's host parts as a worker makes it (here, one thread): the
     # JPEG decode, the rest of the sample (the rays), collate and the plan
-    spec = make_data_loader(cfg, "train", dataset=ds, epoch=1,
-                            hat_state=run.hat_state)._spec()
+    loader = make_data_loader(cfg, "train", dataset=ds, epoch=1,
+                              hat_state=hat_state)
+    spec = loader._spec()
     parts = {k: [] for k in ("decode", "rays", "collate", "plan")}
     for bi, j in enumerate(loader.indices[:CONFIG_HOST_BATCHES]):
         i, c = divmod(j, ds.n_cams)
@@ -544,16 +617,19 @@ def config_path(torch, dev, card, reset_counts, read_counts, failed):
                      ("collate", t3 - t2), ("plan", t4 - t3)):
             parts[k].append(1e3 * v)
     host_ms = {k: statistics.median(v) for k, v in parts.items()}
-    # the warm epoch's steps, eager, from the seeded state
+    # the banked warm epoch's steps, eager, from the seeded state
+    eager_run = graph_noise.config_run(cfg, ds, dev, bank=False)
     bn, st = train_steps(eager_run.params, eager_run.bn_stats, eager_run.opt,
-                         [b for b, _ in warm], settings, device=dev)
+                         warm_geom, settings, device=dev)
     eager = graph_noise.run_state(eager_run.params, bn, eager_run.opt,
                                   st["loss"])
+    del eager_run, state
     check, over = graph_noise.check(graph_state, eager, CONFIG_TOL)
-    # the mean loss of each dispatch, warm and timed
+    # the mean loss of each banked dispatch, warm and timed
     means = [statistics.mean(x) for x in
              [w.tolist() for w in warm_losses] + losses]
-    want = tuple((1 + WARMUP) * G * n for n in (4, 4, 2 * CONV_LAYERS))
+    want = tuple((1 + WARMUP) * G * n
+                 for n in (4, 4, 2 * CONV_LAYERS, CONV_LAYERS))
     planner = ("native" if hat_planner_native._LIB is not None
                else "not loaded")
     emit(phase="config_path", config=os.path.relpath(graph_noise.CONFIG_313),
@@ -563,40 +639,81 @@ def config_path(torch, dev, card, reset_counts, read_counts, failed):
          dataset=dict(frames=ds.n_frames, cams=ds.n_cams, hw=list(ds.hw),
                       rays=ds.n_rand, out_sh=list(ds.out_sh),
                       site_caps=list(ds.site_caps)),
-         dataset_s=dataset_s, workers=CONFIG_WORKERS,
-         pool_start_s=pool_start_s, planner=planner,
+         workers=CONFIG_WORKERS, planner=planner,
          hat_state={k: list(v) if isinstance(v, tuple) else v
-                    for k, v in run.hat_state.items()},
+                    for k, v in hat_state.items()},
          steps_per_dispatch=G, warm_dispatches=CONFIG_WARM, warm_s=warm_s,
-         timed_dispatches=len(dispatch_ms), epoch_s=epoch_s,
-         dispatch_ms=dispatch_ms,
-         dispatch_ms_median=statistics.median(dispatch_ms),
-         rays_per_s=len(dispatch_ms) * G * ds.n_rand / epoch_s,
-         h2d_bytes_per_dispatch=copied,
-         stack_ms_median=statistics.median(stack_ms),
-         copy_ms_median=statistics.median(copy_ms),
-         device_batch_dispatch_ms_median=statistics.median(replay_ms),
+         banked=banked, stacked=stacked_row,
+         banked_over_stacked_rays_per_s=(banked["rays_per_s"]
+                                         / stacked_row["rays_per_s"]),
          replay_busy_ms=trace["busy_ms"], host_ms_per_batch=host_ms,
          host_ms_per_batch_total=sum(host_ms.values()),
-         host_batches=CONFIG_HOST_BATCHES, captures=captures,
-         losses=losses, mean_loss_per_dispatch=means,
-         launches_at_capture=counts, launches_expected=want,
-         replay_per_step=per_step, card=card)
+         host_batches=CONFIG_HOST_BATCHES, losses=losses,
+         mean_loss_per_dispatch=means, launches_at_capture=counts,
+         launches_expected=want, replay_per_step=per_step, card=card)
     emit(phase="config_vs_eager", steps=CONFIG_WARM * G, tol=CONFIG_TOL,
          groups=check, over=len(over),
          graph_losses=graph_state["loss"][0][1].tolist(),
          eager_losses=eager["loss"][0][1].tolist())
-    if (counts != want or captures != 1 or planner != "native"
+    if (counts != want or captures != 1 or stacked_row["captures"] != 1
+            or planner != "native"
             or per_step["hat_fwd"] != 4 or per_step["hat_bwd"] != 4
             or per_step["conv"] != 2 * CONV_LAYERS
             or not all(math.isfinite(x) for row in losses for x in row)
-            or not means[-1] < means[0]):
+            or not means[-1] < means[0]
+            or not banked["h2d_bytes_per_dispatch"] < CONFIG_H2D_MAX):
         failed.append(f"config_path: launches {counts} (want {want}), a "
-                      f"replay's per step {per_step}, captures {captures}, "
-                      f"planner {planner}, losses {losses}")
+                      f"replay's per step {per_step}, captures {captures} "
+                      f"and {stacked_row['captures']}, planner {planner}, "
+                      f"losses {losses}, bytes a dispatch "
+                      f"{banked['h2d_bytes_per_dispatch']}")
     if over:
         failed.append(f"config_path against eager steps: {over[:5]}")
     return counts, per_step
+
+
+def h2d_overlap(events):
+    """The host -> device copies of a trace (chrome-trace events): their
+    count, bytes, ms, and the ms of them that kernels on another stream
+    covered."""
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e["name"]]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    covered = 0.0
+    for c in copies:
+        a, b = c["ts"], c["ts"] + c.get("dur", 0)
+        spans = sorted((max(a, k["ts"]), min(b, k["ts"] + k.get("dur", 0)))
+                       for k in kernels
+                       if k.get("args", {}).get("stream")
+                       != c.get("args", {}).get("stream"))
+        end = a
+        for lo, hi in spans:
+            if hi > max(lo, end):
+                covered += hi - max(lo, end)
+                end = hi
+    return dict(copies=len(copies),
+                bytes=sum(e.get("args", {}).get("bytes", 0) for e in copies),
+                ms=sum(e.get("dur", 0) for e in copies) / 1e3,
+                covered_ms=covered / 1e3)
+
+
+def fresh_bench(torch, card, pool):
+    """The bench's fresh half (neuralbody_tpu_torch/bench.measure_fresh) on
+    the config path's pool and dataset: a warm epoch of 2 dispatches, a
+    timed epoch of FRESH_DISPATCHES, a profiled one. Returns its result."""
+    from neuralbody_tpu_torch import bench as port_bench
+    t0 = time.perf_counter()
+    fresh = port_bench.measure_fresh(n_disp=FRESH_DISPATCHES, pool=pool)
+    emit(phase="fresh_bench", seconds=time.perf_counter() - t0,
+         dispatches=FRESH_DISPATCHES, steps_per_dispatch=port_bench.G,
+         card=card, **fresh)
+    share = fresh["fresh_device_busy_share"]
+    if not (fresh["fresh_rays_per_s"] > 0 and share is not None
+            and 0 < share <= 1
+            and fresh["fresh_h2d_bytes_per_dispatch"] < CONFIG_H2D_MAX):
+        raise AssertionError(f"fresh bench: {fresh}")
+    torch.cuda.empty_cache()
+    return fresh
 
 
 def nerf_family(torch, dev, card, ebatch, rbatch):
@@ -1342,9 +1459,9 @@ def main():
     conv_launch = sparse_conv.sparse_conv
     conv_calls = []
 
-    def conv_recorder(T, idx, W):
+    def conv_recorder(T, idx, W, dx=False):
         conv_calls.append((T, idx, W))
-        return conv_launch(T, idx, W)
+        return conv_launch(T, idx, W, dx=dx)
 
     card_grads = {}
     conv_inputs = {mode: {} for mode in modes}
@@ -1463,7 +1580,7 @@ def main():
 
     def reset_counts():
         hat_kernel.LAUNCHES = hat_kernel.BWD_LAUNCHES = 0
-        conv_kernel.CONV_LAUNCHES = 0
+        conv_kernel.CONV_LAUNCHES = conv_kernel.CONV_DX_LAUNCHES = 0
 
     def read_counts():
         return (hat_kernel.LAUNCHES, hat_kernel.BWD_LAUNCHES,
@@ -1579,7 +1696,7 @@ def main():
     # (a) + (c): the main training path, TRAIN_STEPS steps on one batch per
     # mode from the seeded weights, 4 forward and 4 backward hat launches
     # and 17 forward and 17 dx conv launches per step, the loss falling
-    losses = {}
+    losses, dx_launches = {}, {}
     for mode in modes:
         tp, tbn = fresh_params()
         opt = optimizer.make_optimizer(tp, schedule())
@@ -1594,6 +1711,11 @@ def main():
                                                         before)))
         torch.cuda.synchronize()
         launches[("train", mode)] = read_counts()
+        dx_launches[mode] = conv_kernel.CONV_DX_LAUNCHES
+        if dx_launches[mode] != TRAIN_STEPS * CONV_LAYERS:
+            raise AssertionError(f"{mode} steps launched "
+                                 f"{dx_launches[mode]} dx convs, not "
+                                 f"{TRAIN_STEPS * CONV_LAYERS}")
         finite = all(torch.isfinite(p).all() for _, p in leaves(tp))
         emit(phase="train", mode=mode, steps=TRAIN_STEPS, lr=LR,
              losses=losses[mode], launches_per_step=per_step[0],
@@ -1690,7 +1812,8 @@ def main():
             os.path.join(cuda_build.BUILD_DIR, f"eager_{mode}.json"))
         want_clusters = clusters(step_fwd_convs[mode]) + clusters(
             conv_inputs[mode]["dx"])
-        per_step = {k: v / GRAPH_G for k, v in replay.items()}
+        per_step = {k: v / GRAPH_G for k, v in replay.items()
+                    if k != "busy_share"}
         graph_replay[mode] = per_step
         eager_trace[mode] = eager_step
         emit(phase="graph_launches", mode=mode, steps_per_replay=GRAPH_G,
@@ -2203,24 +2326,42 @@ def main():
                    / wall_ms} for e in ops[:HOST_TOP]], card=card)
         del tp, tbn, opt, prof
 
+    # -- 6a. the config path: config, factories, loader workers, the bank,
+    # the prefetcher, the banked graph; then the bench's fresh half on the
+    # same pool ------------------------------------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, ds = graph_noise.config_case("full", "bfloat16", CONFIG_G,
+                                      CONFIG_WARM * CONFIG_G)
+    dataset_s = time.perf_counter() - t0
+    pool, pool_start_s = start_pool(ds)
+    try:
+        emit(phase="config_pool", dataset_s=dataset_s,
+             pool_start_s=pool_start_s, workers=CONFIG_WORKERS)
+        config_counts, config_replay = config_path(
+            torch, dev, card, cfg, ds, pool, reset_counts, read_counts,
+            failed)
+        fresh = fresh_bench(torch, card, pool)
+    finally:
+        pool.shutdown()
+
     # the port's bench, as `python -m neuralbody_tpu_torch.bench` runs it
+    # (its fresh half measured above, on the config path's pool)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     line = port_bench.summary(
         port_bench.measure_broadcast(),
         port_bench.measure_broadcast(n_rays=4096, n_iters=6, extras=False),
-        card)
+        card, fresh)
     emit(phase="bench", seconds=time.perf_counter() - t0, **line)
+    shares = [line[k] for k in ("device_busy_share",
+                                "fresh_device_busy_share")]
     if (set(port_bench.BENCH_KEYS) - line.keys()
+            or any(line[k] is None for k in port_bench.BENCH_KEYS)
             or not line["broadcast_rays_per_s"] > 0
-            or not line["broadcast_4096_rays_per_s"] > 0):
+            or not line["broadcast_4096_rays_per_s"] > 0
+            or not all(0 < x <= 1 for x in shares)):
         raise AssertionError(f"bench line: {line}")
-
-    # -- 6a. the config path: config, factories, loader workers, graph ------
-    torch.cuda.empty_cache()
-    config_counts, config_replay = config_path(torch, dev, card,
-                                               reset_counts, read_counts,
-                                               failed)
 
     # -- 6b. the NeRF baseline family and the dense product ------------------
     torch.cuda.empty_cache()
@@ -2253,16 +2394,24 @@ def main():
                 "config_path_replay_launches_per_step": (
                     config_replay["hat_fwd" if kind == "fwd" else "hat_bwd"]
                     if mode == "bf16" else None)})
-    # the conv kernel's forward launches: 17 per encode in every forward
-    # path and in each training step; its dx launches: 17 per training step
-    # (34 counted per step above)
+    # the conv kernel's launches by the wrapper's counters: its dx launches
+    # (CONV_DX_LAUNCHES: 17 per training step), its forward ones (the rest:
+    # 17 per encode in every forward path and in each training step). A
+    # trace names one kernel for both: its counts stand on the forward row,
+    # and the dx row's are null.
     fwd_paths = [k for k in launches if k[0] != "train"]
     for kind, kname in (("fwd", "sparse_conv"), ("dx", "sparse_conv_dx")):
         for mode in modes:
             t = timing[(f"conv_{kind}", mode)]
-            n = launches[("train", mode)][2] // 2
+            dx = dx_launches[mode]
+            n = launches[("train", mode)][2] - dx if kind == "fwd" else dx
             if kind == "fwd":
                 n += sum(launches[k][2] for k in fwd_paths if k[1] == mode)
+            config = None
+            if mode == "bf16":   # the config path runs in bf16 only
+                config = (config_counts[2] - config_counts[3]
+                          if kind == "fwd" else config_counts[3])
+            traced = kind == "fwd"
             kernels.append({
                 "name": f"{kname}[{mode}]", "route": "cuda",
                 "source": "neuralbody_tpu_torch/csrc/sparse_conv.cu",
@@ -2272,14 +2421,15 @@ def main():
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"],
                 "bound_fp32_cores_ms": t["bound_fp32_cores_ms"],
-                # one kernel name: a replay's forward and dx launches together
-                "replay_launches_per_step": graph_replay[mode]["conv"],
+                "replay_launches_counted": "forward and dx together",
+                "replay_launches_per_step": (
+                    graph_replay[mode]["conv"] if traced else None),
                 "replay_launches_per_render": (
-                    render_replay[mode]["conv"] if kind == "fwd" else 0),
-                "config_path_launches": (
-                    config_counts[2] // 2 if mode == "bf16" else None),
+                    render_replay[mode]["conv"] if traced else None),
+                "config_path_launches": config,
                 "config_path_replay_launches_per_step": (
-                    config_replay["conv"] if mode == "bf16" else None)})
+                    config_replay["conv"] if traced and mode == "bf16"
+                    else None)})
     for k in nerf_kernels:   # the config path trains latent_xyzc only
         k.update(config_path_launches=None,
                  config_path_replay_launches_per_step=None)

@@ -17,10 +17,14 @@ package. What it holds:
     conv_kernel, dense_kernel over csrc/*.cu).
   * renderer/: latent_xyzc's hat-path and plan-free renders, the NeRF
     baseline's coarse + fine render, their settings factories.
+  * parallel/: the device geometry bank (geom.py) and the prefetcher that
+    stages each dispatch group through pinned buffers on a side stream
+    (transfer.py).
   * train/: train_step, eval_step and the NeRF steps, Adam, the CUDA graphs
-    of the G-step dispatch (train_step_scan) and of a hat render, and
-    fresh.py, training from a config through the datasets and the loader.
-  * bench.py: the training throughput bench (broadcast half).
+    of the G-step dispatch (train_step_scan, train_step_scan_banked) and
+    of a hat render, and fresh.py, training from a config through the
+    datasets, the loader, the bank and the prefetcher.
+  * bench.py: the training throughput bench (fresh and broadcast halves).
 
 Entry points run on the card unless the caller passes device="cpu", where
 every kernel's plain PyTorch version runs instead.

@@ -202,6 +202,7 @@ class WorkerPool:
     def __init__(self, dataset, num_workers):
         import multiprocessing as mp
         ctx = mp.get_context("spawn")
+        self.dataset = dataset     # the workers' own copies are pickled
         self.num_workers = num_workers
         self.geom_cache = {}
         self._failed = False

@@ -44,6 +44,7 @@ from ..utils import cuda_build
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "sparse_conv.cu"
 
 CONV_LAUNCHES = 0  # kernel launches since the last reset (plain counts none)
+CONV_DX_LAUNCHES = 0   # those of them made for a backward's dx
 
 _COUTS = (16, 32, 64, 128)
 # The kernel's tiling, as the library reports it (sparse_conv_tiling; _kernel
@@ -186,7 +187,7 @@ def _check(T, idx, W):
         raise ValueError("T must be 16-byte aligned")
 
 
-def sparse_conv(T, idx, W):
+def sparse_conv(T, idx, W, dx=False):
     """The sparse convolution of one table through one index table.
 
     Args:
@@ -195,11 +196,13 @@ def sparse_conv(T, idx, W):
       idx: [(B,) K, S] int32 tap-major row indices, none negative; an
         index >= n_rows reads zeros (the tables' zero-row sentinel).
       W:   [K, E, Cout] f32 weights, any strides.
+      dx:  the call computes a backward's input gradient (its launch is
+        counted in CONV_DX_LAUNCHES too).
 
     Returns [(B,) S, Cout] f32. The kernel takes E a multiple of 16,
     Cout in {16, 32, 64, 128} and K <= 32; its sums run in a fixed order.
     """
-    global CONV_LAUNCHES
+    global CONV_LAUNCHES, CONV_DX_LAUNCHES
     if T.device.type == "cpu":
         return sparse_conv_plain(T, idx, W)
     if T.device.type != "cuda":
@@ -227,4 +230,5 @@ def sparse_conv(T, idx, W):
         raise RuntimeError(f"sparse_conv kernel launch failed: CUDA error "
                            f"{err}")
     CONV_LAUNCHES += 1
+    CONV_DX_LAUNCHES += int(dx)
     return out

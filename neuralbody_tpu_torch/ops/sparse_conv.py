@@ -360,7 +360,7 @@ class _SubmConv(torch.autograd.Function):
         x, w, nbr = ctx.saved_tensors
         gy = _cotangent(gy, x)
         w_t = torch.flip(w, (0,)).transpose(1, 2)       # [27, Cout, Cin]
-        dx = sparse_conv(gy, nbr, w_t).to(x.dtype)
+        dx = sparse_conv(gy, nbr, w_t, dx=True).to(x.dtype)
         dw = torch.flip(_weight_grad(x, gather_rows(gy, nbr)), (0,))
         return dx, dw.to(w.dtype), None
 
@@ -408,7 +408,7 @@ class _SubmConvXtri(torch.autograd.Function):
         x, w, lnbr, rnbr, nbr9, augl, augr = ctx.saved_tensors
         tri = xtri_table(_cotangent(gy, x), lnbr, rnbr, augl, augr)
         w_t = torch.flip(w, (0,)).transpose(1, 2)       # [27, Cout, Cin]
-        dx = sparse_conv(tri, nbr9, _w9(w_t)).to(x.dtype)
+        dx = sparse_conv(tri, nbr9, _w9(w_t), dx=True).to(x.dtype)
         cin, cout = w.shape[1], w.shape[2]
         d = _weight_grad(x, gather_rows(tri, nbr9))     # [9, Cin, 3Cout]
         d27 = d.reshape(9, cin, 3, cout).transpose(1, 2).reshape(
@@ -432,7 +432,8 @@ class _DownConv(torch.autograd.Function):
     def backward(ctx, gy):
         x, w, up_tbl = ctx.saved_tensors
         gy = _cotangent(gy, x)
-        dx = sparse_conv(gy, up_tbl, w.transpose(1, 2)).to(x.dtype)
+        dx = sparse_conv(gy, up_tbl, w.transpose(1, 2),
+                        dx=True).to(x.dtype)
         dw = _weight_grad(x, gather_rows(gy, up_tbl))
         return dx, dw.to(w.dtype), None, None
 

@@ -131,9 +131,9 @@ def step_convs(dev):
     params["alpha_fc"]["b"] += 1.0
     launch, calls, out = sparse_conv.sparse_conv, [], {}
 
-    def recorder(T, idx, W):
+    def recorder(T, idx, W, dx=False):
         calls.append((T, idx, W))
-        return launch(T, idx, W)
+        return launch(T, idx, W, dx=dx)
 
     sparse_conv.sparse_conv = recorder
     try:

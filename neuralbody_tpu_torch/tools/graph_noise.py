@@ -41,11 +41,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import os
 import subprocess
 
 import numpy as np
 import torch
+
+from ..train import fresh
 
 GROUPS = ("params", "mu", "nu", "bn", "loss")
 MARGIN = 4   # a tolerance is this many times the worst eager spread
@@ -154,9 +155,7 @@ def batch_pair(n_rays, n_verts, voxel_size, n_samples, seed):
     return [plan(i, hs)[0] for i in (0, 1)], static
 
 
-CONFIG_313 = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "configs", "zju_mocap_exp", "latent_xyzc_313.yaml")
+CONFIG_313 = fresh.CONFIG_313
 ALPHA_BIAS = 1.0   # added to alpha_fc's bias: random weights leave the
 # rays empty (chip_smoke.py raises it alike)
 SIZES = {   # SyntheticDataset's arguments and the samples a ray
@@ -174,22 +173,18 @@ def config_case(size, mode, G, n_batches):
     compute dtype, G steps a dispatch, n_batches an epoch, and (at the small
     size) the dataset's rays, samples, voxels and vertices; at full size
     those are the YAML's own."""
-    from ..config import make_cfg
+    from ..train.fresh import synthetic_cfg
     from ..utils.synthetic import SyntheticDataset
     kw = dict(SIZES[size])
     n_samples = kw.pop("n_samples")
-    cfg = make_cfg(CONFIG_313, opts=[
-        "tpu.compute_dtype", mode, "tpu.steps_per_dispatch", str(G),
-        "ep_iter", str(n_batches), "N_rand", str(kw["n_rand"]),
-        "N_samples", str(n_samples), "voxel_size", str([kw["voxel_size"]] * 3),
-        "nv", str(kw["n_verts"])])
-    return cfg, SyntheticDataset(**kw)
+    ds = SyntheticDataset(**kw)
+    return synthetic_cfg(ds, mode, G, n_batches, n_samples), ds
 
 
-def config_run(cfg, dataset, device, pool=None):
+def config_run(cfg, dataset, device, pool=None, bank=True):
     """train/fresh.ConfigRun of the case, alpha_fc's bias raised."""
-    from ..train.fresh import ConfigRun
-    run = ConfigRun(cfg, dataset=dataset, pool=pool, device=device)
+    run = fresh.ConfigRun(cfg, dataset=dataset, pool=pool, device=device,
+                          bank=bank)
     with torch.no_grad():
         run.params["alpha_fc"]["b"] += ALPHA_BIAS
     return run

@@ -1,7 +1,8 @@
 """How often a torch.profiler trace of one training step misses kernels the
 card ran, and where in the step the missing ones lie; and device_events,
 the trace of one call that chip_smoke.py's traced_kernels and the card
-tests count kernels by name in. The tool needs an NVIDIA GPU.
+tests count kernels by name in; and busy_share, the device's busy share of
+such a trace (an interval union). The tool needs an NVIDIA GPU.
 
     python -m neuralbody_tpu_torch.tools.trace_loss [--seconds 240]
         [--modes bfloat16,float32]
@@ -62,6 +63,26 @@ def device_events(fn, path):
         raise RuntimeError(f"{path}: the trace lost its marker kernel")
     return sorted((e for e in events if e.get("cat") in DEVICE_CATS
                    and e["ts"] > max(marks)), key=lambda e: e["ts"])
+
+
+def busy_share(events):
+    """(busy us, span us, busy / span) of the card's events (device_events'
+    kernels, copies and fills, on every stream): the union of their
+    intervals, over the span from the first one's start to the last one's
+    end. Events that overlap (a copy on a side stream beside a kernel) count
+    once, so the share is at most 1."""
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events)
+    if not spans:
+        raise ValueError("no device events to take a busy share of")
+    busy, start, end = 0.0, spans[0][0], spans[0][0]
+    for a, b in spans:
+        if a > end:
+            busy += end - start
+            start = a
+        end = max(end, b)
+    busy += end - start
+    span = max(b for _, b in spans) - spans[0][0]
+    return busy, span, busy / span if span > 0 else 1.0
 
 
 def trace_names(fn, path, warm=False):

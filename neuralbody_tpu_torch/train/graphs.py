@@ -28,6 +28,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.geom import take
+from ..parallel.transfer import Staged
 from ..renderer.dispatch import get_render_fn
 from ..renderer.renderer import RenderSettings
 from ..utils.platform import resolve_device, to_device
@@ -105,7 +107,11 @@ def _capture(body, restore, generator=None):
                 "torch.Generator with a CUDA graph; the raw-noise term "
                 "(raw_noise_std > 0) cannot be captured")
         graph.register_generator_state(generator)
-    with torch.cuda.graph(graph):
+    # thread_local: the prefetcher's thread (parallel/transfer.py) may stage
+    # the next group (event waits, copies on its own stream) while this
+    # thread captures; CUDA refuses such calls from other threads in the
+    # default "global" mode
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         out = body()
     return graph, out
 
@@ -117,15 +123,21 @@ class StepGraph:
     the card or in numpy) whose every leaf has a leading axis of G steps:
     precompute_hat_device's batches, or un-expanded ones with
     settings.hat_rows_caps (the segment expansion is device work with
-    static caps). It captures at the first call and whenever the shapes,
-    dtypes, settings, generator, the optimizer's constants or the
-    parameters' or moments' tensors change (`captures` counts them), copies
-    in the batch and bn_stats where they are not its own buffers, writes the
-    G steps' rows of opt.scalars() into its scalar buffer, replays, and
-    advances opt.count by G. Returns (bn_stats, stats): bn_stats are the
-    graph's own running-stat buffers, which the next call overwrites (pass
-    them back, as a JAX caller passes back the state); stats are copies,
-    each stacked over the G steps.
+    static caps). With a `bank` (parallel/geom.GeomBank) the batches carry
+    geom_rows [G, B] in place of geom, and step i takes its geometry from
+    the bank inside the graph (take). It captures at the first call and
+    whenever the shapes, dtypes, settings, generator, the optimizer's
+    constants, the parameters' or moments' tensors or the bank's storage or
+    layout change (`captures` counts them; a frame installed into a free row
+    of the bank changes none of them), copies in the batch and bn_stats
+    where they are not its own buffers, writes the G steps' rows of
+    opt.scalars() into its scalar buffer, replays, and advances opt.count
+    by G. A batch staged by parallel/transfer.StagingRing (a Staged tree,
+    already on the card) is copied in device to device after its copy has
+    run, and released for refilling right after. Returns (bn_stats,
+    stats): bn_stats are the graph's own running-stat buffers, which the
+    next call overwrites (pass them back, as a JAX caller passes back the
+    state); stats are copies, each stacked over the G steps.
     """
 
     def __init__(self, device=None):
@@ -134,21 +146,31 @@ class StepGraph:
         self._key = None
 
     def __call__(self, params, bn_stats, opt, batches, settings,
-                 generator=None):
+                 generator=None, bank=None):
         _hat_batch(batches, settings, "StepGraph")
         state = tree_leaves(params) + tree_leaves(opt.mu) + tree_leaves(opt.nu)
         _check_on(self.device, state, "params and the optimizer's state")
-        batches = to_device(batches, self.device)
+        staged = batches if isinstance(batches, Staged) else None
+        if staged is not None:
+            staged.wait()
+            _check_on(self.device, tree_leaves(batches), "a staged batch")
+        else:
+            batches = to_device(batches, self.device)
         bn_stats = to_device(bn_stats, self.device)
         G = scan_length(batches)
         noise = generator if settings.raw_noise_std > 0 else None
+        banked = None if bank is None else (
+            bank.storage.data_ptr(), tuple(bank.storage.shape), bank.layout)
         key = (settings, _signature(batches), _signature(bn_stats),
                _signature(params), _addresses(state), id(noise),
-               (opt.clip, opt.weight_decay, opt.b1, opt.b2, opt.eps))
+               (opt.clip, opt.weight_decay, opt.b1, opt.b2, opt.eps), banked)
         if key != self._key:
-            self._capture(params, bn_stats, opt, batches, settings, noise, G)
+            self._capture(params, bn_stats, opt, batches, settings, noise, G,
+                          bank)
             self._key = key
         _copy_in(tree_leaves(self._batches), tree_leaves(batches))
+        if staged is not None:
+            staged.consumed()
         _copy_in(tree_leaves(self._bn), tree_leaves(bn_stats))
         # the staging buffer is free once the last call's copy has run
         self._copied.synchronize()
@@ -160,7 +182,7 @@ class StepGraph:
         return self._bn, {k: v.clone() for k, v in self._stats.items()}
 
     def _capture(self, params, bn_stats, opt, batches, settings, generator,
-                 G):
+                 G, bank):
         self._key = self._graph = None   # the old graph's pool goes first
         self._batches = _owned(batches)
         self._bn = _owned(bn_stats)
@@ -179,9 +201,11 @@ class StepGraph:
         def body():
             bn, stats = self._bn, []
             for i in range(G):
+                batch = scan_slice(self._batches, i)
+                if bank is not None:
+                    batch["geom"] = take(bank, batch.pop("geom_rows"))
                 loss, (_, new_bn, st), grads = loss_and_grads(
-                    params, scan_slice(self._batches, i), settings,
-                    generator)
+                    params, batch, settings, generator)
                 opt.step(params, grads, scalars=self._scalars[i])
                 st["loss"] = loss
                 bn = merge_bn_stats(bn, new_bn)

@@ -9,13 +9,16 @@ steps are family-generic: the render function is recovered from the
 settings' type (renderer/dispatch.py). JAX returns new parameters; here the
 step updates the parameter tensors in place, PyTorch's idiom.
 train_step_scan runs G steps in one dispatch: on the card as one CUDA
-graph (train/graphs.py).
+graph (train/graphs.py); train_step_scan_banked is the same dispatch with
+each step's frame geometry taken from a device bank (parallel/geom.py).
 """
 from __future__ import annotations
 
 import torch
 
 from ..models.sparse_conv_net import update_running_stats
+from ..parallel.geom import take
+from ..parallel.transfer import Staged
 from ..renderer.dispatch import get_render_fn
 from ..utils.platform import resolve_device, to_device
 from .optimizer import tree_leaves, tree_map
@@ -148,15 +151,56 @@ def train_step_scan(params, bn_stats, opt, batches, settings, device=None,
     """
     device = resolve_device(device)
     if device.type == "cpu":
-        return train_steps(params, bn_stats, opt,
-                           [scan_slice(batches, i)
-                            for i in range(scan_length(batches))],
-                           settings, device=device, generator=generator)
+        return _plain_scan(params, bn_stats, opt, batches, settings, device,
+                           generator)
     from .graphs import StepGraph   # graphs.py builds on this module
     if opt.step_graph is None or opt.step_graph.device != device:
         opt.step_graph = StepGraph(device)
     return opt.step_graph(params, bn_stats, opt, batches, settings,
                           generator)
+
+
+def train_step_scan_banked(params, bn_stats, opt, batches, bank, settings,
+                           device=None, generator=None):
+    """train_step_scan with each step's geometry selected from a device
+    bank (counterpart of the JAX package's train_step_scan_banked).
+
+    batches: a batch tree with a leading axis of G steps that carries
+    geom_rows, int64 [G, B] rows of `bank` (parallel/geom.GeomBank), in
+    place of geom: numpy, tensors, or a staging set of
+    parallel/transfer.StagingRing. On the card it is train_step_scan's
+    StepGraph with the selection inside the graph; with device="cpu" it is
+    train_steps' loop, step i given take(bank, geom_rows[i]). Returns
+    (bn_stats, stats stacked over the G steps), as train_step_scan.
+    """
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return _plain_scan(params, bn_stats, opt, batches, settings, device,
+                           generator, bank)
+    from .graphs import StepGraph
+    if opt.step_graph is None or opt.step_graph.device != device:
+        opt.step_graph = StepGraph(device)
+    return opt.step_graph(params, bn_stats, opt, batches, settings,
+                          generator, bank=bank)
+
+
+def _plain_scan(params, bn_stats, opt, batches, settings, device, generator,
+                bank=None):
+    """train_steps' loop over the G steps of a batch tree, each step's
+    geometry taken from `bank` when one is given. A staging set
+    (parallel/transfer.Staged) is released once the steps have read it."""
+    steps = []
+    for i in range(scan_length(batches)):
+        step = scan_slice(batches, i)
+        if bank is not None:
+            step["geom"] = take(bank, to_device(step.pop("geom_rows"),
+                                                device))
+        steps.append(step)
+    out = train_steps(params, bn_stats, opt, steps, settings, device=device,
+                      generator=generator)
+    if isinstance(batches, Staged):
+        batches.consumed()
+    return out
 
 
 def eval_step(params, batch, settings, device=None):

@@ -59,7 +59,7 @@ class SyntheticDataset:
                                        compute_site_caps)
 
         self.n_frames, self.n_cams = n_frames, n_cams
-        self.hw, self.n_rand = hw, n_rand
+        self.hw, self.n_rand, self.n_verts = hw, n_rand, n_verts
         self.voxel_size = (voxel_size,) * 3
         self.num_cams = n_cams
         rng = np.random.RandomState(seed)

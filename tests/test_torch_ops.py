@@ -378,7 +378,8 @@ def test_port_imports_no_jax():
         "'datasets.ray_utils', 'datasets.frame_data', "
         "'datasets.zju_mocap', 'datasets.snapshot', 'datasets.loader', "
         "'ops.hat_planner_native', 'train.wrappers', 'train.fresh', "
-        "'tools.graph_noise', 'tools.trace_loss')}\n"
+        "'tools.graph_noise', 'tools.trace_loss', 'parallel.geom', "
+        "'parallel.transfer')}\n"
         "assert new <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")

@@ -313,8 +313,10 @@ def test_bench_broadcast_on_the_cpu():
     assert line.keys() == set(bench.BENCH_KEYS) | {
         "card", "steps_per_dispatch", "eager_broadcast_rays_per_s",
         "hat_render_graph_rays_per_s", "hat_render_eager_rays_per_s",
-        "device_busy_share"}
+        "device_busy_share", "fresh_device_busy_share",
+        "fresh_h2d_bytes_per_dispatch"}
     for k in ("value", "vs_baseline", "fresh_over_broadcast", "card",
-              "hat_render_graph_rays_per_s", "device_busy_share"):
+              "hat_render_graph_rays_per_s", "device_busy_share",
+              "fresh_device_busy_share", "fresh_h2d_bytes_per_dispatch"):
         assert line[k] is None, k
     assert line["steps_per_dispatch"] == bench.G
