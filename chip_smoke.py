@@ -25,9 +25,12 @@ through their entry points:
   * the graphed paths (train/graphs.py), bf16 and f32: two replays of a
     two-step StepGraph (train_step_scan's dispatch) on batches A then B
     against one eager run of the four steps (the losses, every parameter,
-    Adam moment and BN-stat leaf within GRAPH_TOL, a fixed relative L2
-    tolerance per group), the same graph fed A in its second replay (a
-    stale copy, which the check must put over its limit by STALE_MIN),
+    Adam moment and BN-stat leaf within GRAPH_TOL, a fixed tolerance per
+    group on the L2 distance over the group's scale), the same graph fed A
+    in its second replay (a stale copy, which the check must put over its
+    limit by STALE_MIN) and the graphed state with mu's largest leaf
+    negated (which must be over it) or params' largest at its seeded
+    value,
     the kernels a replay launches counted by name in a torch.profiler
     trace, and a RenderGraph render against eval_step; then both timed
     beside their eager loops, an eager step's host operations profiled,
@@ -46,7 +49,18 @@ through their entry points:
     of them kernels on another stream cover). Then, on the same pool, the
     stacked path (bank=False: each group stacked on the host) timed the
     same way, and the bench's fresh half (bench.measure_fresh: 2 warm and
-    12 timed dispatches), whose rays/s fill the bench line's `value`.
+    12 timed dispatches), whose rays/s fill the bench line's `value`;
+  * the training harness (train/trainer.Trainer) on a fake ZJU-MoCap
+    sequence (utils/fake_zju: 4 frames x 4 cameras at 1024^2, 6890
+    vertices; views 0-2 train, view 3 tests): "trainer_fit", the 313
+    config in bf16 (G = 8, two loader workers), fit() of two epochs of two
+    dispatches (one capture; latest.ckpt, 0.ckpt and 1.ckpt), validate()
+    on the test view's four frames (finite PSNR, SSIM in [0, 1]), a second
+    Trainer resumed from latest.ckpt bit for bit, the Trainer's epoch
+    timed with a read of every dispatch and with one read at its end
+    beside the fresh half's dispatch, a resume in place (no new capture);
+    "trainer_nerf", nerf_313.yaml (f32) through the eager branch, one
+    epoch of eight steps and validate().
 
 Each kernel (the hat contraction forward and backward, each with its cell
 lookup and with its scan; the gather-fused sparse conv on the tensor cores
@@ -152,19 +166,22 @@ GRAPH_G = 2      # steps a StepGraph replay: two replays held against
 SCAN_G = 8       # steps a dispatch in scan_timing, as in the bench
 SCAN_ROUNDS = 2  # ABBA rounds of one graphed and one eager dispatch
 # A graph against one eager run of the same steps from the same state: per
-# leaf the relative L2 distance ||g - e|| / max(||g||, ||e||) (an equal
-# leaf is at 0), at most the leaf's group's tolerance. The hat backward's
-# float atomics and index_add_ change their order from run to run, and the
-# encoder amplifies that over the steps, so eager runs differ; each
-# tolerance is 4x the farthest pair of eager runs in three calls of 24-32
-# runs each, the larger of bf16's and f32's, measured by
-# tools/graph_noise.py on an H100 80GB HBM3 at 700 W (PERF.md section 2).
+# leaf the L2 distance ||g - e|| over its group's scale, the largest
+# max(||g_l||, ||e_l||) of the group's leaves (an equal leaf is at 0), at
+# most the group's tolerance (tools/graph_noise.py says why the scale is the
+# group's). The hat backward's float atomics and index_add_ change their
+# order from run to run, and the encoder amplifies that over the steps, so
+# eager runs differ; each tolerance is 4x the farthest pair of 32 eager runs,
+# the larger of bf16's and f32's, the largest over two separate runs of
+# tools/graph_noise.py on an H100 80GB HBM3 at 700 W (PERF.md section 2);
+# the loss group, whose rule did not change, keeps the largest of the
+# earlier calls' that is no looser.
 # GRAPH_TOL: graph_vs_eager's four steps ("full" scene); CONFIG_TOL:
 # config_path's two dispatches of G = 8 loader batches ("config" scene,
 # bf16).
-GRAPH_TOL = {"params": 1.5, "mu": 2.8, "nu": 2.1, "bn": 0.17,
+GRAPH_TOL = {"params": 1.24e-3, "mu": 2.7e-3, "nu": 3.42e-3, "bn": 9.8e-4,
              "loss": 8.6e-6}
-CONFIG_TOL = {"params": 1.4, "mu": 2.7, "nu": 2.4, "bn": 0.82,
+CONFIG_TOL = {"params": 5.5e-3, "mu": 1.97e-2, "nu": 7.0e-3, "bn": 0.126,
               "loss": 1.2e-3}
 STALE_MIN = 10   # a second replay fed the first's batch (a stale copy)
 # must be over its tolerance by at least this in its worst group
@@ -172,9 +189,17 @@ CONFIG_G = 8         # config_path: steps a dispatch, as in production
 CONFIG_WORKERS = 2   # its loader workers (one pool for both epochs)
 CONFIG_WARM = 2      # dispatches of its warm epoch (the capture)
 CONFIG_TIMED = 4     # dispatches of its timed epoch
+CONFIG_READ_ROUNDS = 4    # its rounds of epochs read every dispatch / once
 CONFIG_HOST_BATCHES = 8   # batches whose host parts it times
 CONFIG_H2D_MAX = 10e6     # bytes a banked dispatch may copy to the card
 FRESH_DISPATCHES = 12     # the bench's fresh half: its timed dispatches
+TRAINER_FRAMES = 4        # trainer_fit / trainer_nerf: frames of the fake
+TRAINER_CAMS = 4          # ZJU sequence, its cameras (views 0-2 train,
+TRAINER_HW = 1024         # view 3 tests), written at 1024^2 (the configs'
+TRAINER_VERTS = 6890      # ratio 0.5 gives 512^2), SMPL's vertex count
+TRAINER_DISPATCHES = 2    # dispatches of each of fit's two epochs
+TRAINER_TIMED = 4         # dispatches of each timed Trainer epoch
+NERF_STEPS = 8            # trainer_nerf: its epoch of eager steps
 PRODUCT_KERNEL = re.compile(r"gemm|gemv|splitkreduce", re.IGNORECASE)
 HOST_TOP = 15    # host operations listed by host_profile
 MM_REPLACES = "tools/probes/pallas_enc_interp.py:22"
@@ -463,8 +488,7 @@ def start_pool(ds):
     return pool, time.perf_counter() - t0
 
 
-def config_path(torch, dev, card, cfg, ds, pool, reset_counts, read_counts,
-                failed):
+def config_path(torch, dev, card, cfg, ds, pool, failed):
     """The config path, bf16: make_cfg of the 313 config (tools/graph_noise
     config_case "full": SyntheticDataset of 4 frames x 4 cameras at 512^2,
     1024 rays x 64 samples, 6890 vertices, 5 mm voxels), the registered
@@ -474,8 +498,12 @@ def config_path(torch, dev, card, cfg, ds, pool, reset_counts, read_counts,
     device GeomBank, each group staged by the prefetcher (pinned sets, a
     side stream) for train_step_scan_banked's StepGraph. A warm epoch of
     CONFIG_WARM dispatches (the capture), a timed epoch of CONFIG_TIMED,
-    then an epoch of two whose second dispatch is traced, and another of
-    two traced whole for its host-to-device copies. Then the stacked
+    then an epoch of two whose second dispatch is traced, another of
+    two traced whole for its host-to-device copies, and CONFIG_READ_ROUNDS
+    rounds of two timed epochs of CONFIG_TIMED: one that reads each
+    dispatch's losses as it ends (as the YAML's log_interval 1 does) and
+    one that reads them once, at its end (as the bench's fresh half
+    does). Then the stacked
     path (bank=False) on the same pool and plan sizes: one warm dispatch
     (its capture) and a timed epoch of CONFIG_TIMED; and, apart, the parts
     of a stacked dispatch. Held: the banked warm epoch's
@@ -490,7 +518,7 @@ def config_path(torch, dev, card, cfg, ds, pool, reset_counts, read_counts,
 
     from neuralbody_tpu_torch.datasets.loader import (
         _batch_seed, apply_hat_spec, collate, make_data_loader)
-    from neuralbody_tpu_torch.ops import conv_kernel, hat_planner_native
+    from neuralbody_tpu_torch.ops import hat_planner_native
     from neuralbody_tpu_torch.tools import graph_noise
     from neuralbody_tpu_torch.train.fresh import stack_batches, with_geom
     from neuralbody_tpu_torch.train.graphs import WARMUP
@@ -502,7 +530,7 @@ def config_path(torch, dev, card, cfg, ds, pool, reset_counts, read_counts,
     G = CONFIG_G
     cfg.ep_iter = CONFIG_WARM * G
     run = graph_noise.config_run(cfg, ds, dev, pool)
-    reset_counts()
+    reset_kernel_counts()
     t0 = time.perf_counter()
     warm = list(run.loader(0))
     warm_losses = [st["loss"] for st in run.epoch(0, loader=warm)]
@@ -514,7 +542,7 @@ def config_path(torch, dev, card, cfg, ds, pool, reset_counts, read_counts,
     # schedule keeps the warm epoch's)
     cfg.ep_iter = CONFIG_TIMED * G
     losses, dispatch_ms, epoch_s = timed_epoch(run.epoch(1))
-    counts = read_counts() + (conv_kernel.CONV_DX_LAUNCHES,)
+    counts = kernel_counts(*HAT_CONV, "conv_dx")
     captures = run.opt.step_graph.captures
     # an epoch of two dispatches, the second traced: its kernels by name,
     # its copies, and the card's busy share (an interval union)
@@ -536,8 +564,32 @@ def config_path(torch, dev, card, cfg, ds, pool, reset_counts, read_counts,
     prof.export_chrome_trace(path)
     with open(path) as f:
         h2d = h2d_overlap(json.load(f)["traceEvents"])
+    # what the read back costs: epochs that read each dispatch's losses as
+    # it ends against epochs read once at their end, alternating which
+    # goes first; each epoch's first dispatch (the loader and prefetcher
+    # starting) is read and left out, and the rest timed from that read
+    cfg.ep_iter = CONFIG_TIMED * G
+    read_ms = {"every": [], "once": []}
+    for r in range(CONFIG_READ_ROUNDS):
+        order = ("every", "once") if r % 2 == 0 else ("once", "every")
+        for i, how in enumerate(order):
+            epoch = run.epoch(4 + 2 * r + i)
+            next(epoch)["loss"].tolist()
+            t0 = time.perf_counter()
+            if how == "every":
+                for st in epoch:
+                    st["loss"].tolist()
+            else:
+                torch.stack([st["loss"] for st in epoch]).tolist()
+            read_ms[how].append(1e3 * (time.perf_counter() - t0)
+                                / (CONFIG_TIMED - 1))
     per_step = {k: v / G for k, v in trace.items() if k != "busy_share"}
     banked = dict(
+        read_rounds=CONFIG_READ_ROUNDS,
+        read_every_dispatch_ms=read_ms["every"],
+        read_once_dispatch_ms=read_ms["once"],
+        read_every_dispatch_ms_median=statistics.median(read_ms["every"]),
+        read_once_dispatch_ms_median=statistics.median(read_ms["once"]),
         timed_dispatches=len(dispatch_ms), epoch_s=epoch_s,
         dispatch_ms=dispatch_ms,
         dispatch_ms_median=statistics.median(dispatch_ms),
@@ -716,6 +768,275 @@ def fresh_bench(torch, card, pool):
     return fresh
 
 
+def kernel_counts(*names):
+    """Every hand kernel's launch counter: hat forward, hat backward, conv
+    (all), conv dx, dense products, dense column sums, and the dense
+    products by route with those that carried an epilogue. With names,
+    just those counters as a tuple."""
+    from neuralbody_tpu_torch.ops import conv_kernel, dense_kernel, hat_kernel
+    counts = dict(hat_fwd=hat_kernel.LAUNCHES,
+                  hat_bwd=hat_kernel.BWD_LAUNCHES,
+                  conv=conv_kernel.CONV_LAUNCHES,
+                  conv_dx=conv_kernel.CONV_DX_LAUNCHES,
+                  dense=dense_kernel.MM_LAUNCHES,
+                  dense_sum=dense_kernel.SUM_LAUNCHES,
+                  routes=dict(dense_kernel.ROUTE_LAUNCHES,
+                              epilogue=dense_kernel.EPILOGUE_LAUNCHES))
+    return tuple(counts[n] for n in names) if names else counts
+
+
+# the counters that the latent_xyzc phases hold to their expected launches
+HAT_CONV = ("hat_fwd", "hat_bwd", "conv")
+
+
+def reset_kernel_counts():
+    from neuralbody_tpu_torch.ops import conv_kernel, dense_kernel, hat_kernel
+    hat_kernel.LAUNCHES = hat_kernel.BWD_LAUNCHES = 0
+    conv_kernel.CONV_LAUNCHES = conv_kernel.CONV_DX_LAUNCHES = 0
+    dense_kernel.MM_LAUNCHES = dense_kernel.SUM_LAUNCHES = 0
+    dense_kernel.EPILOGUE_LAUNCHES = 0
+    for route in dense_kernel.ROUTE_LAUNCHES:
+        dense_kernel.ROUTE_LAUNCHES[route] = 0
+
+
+def trainer_cfg(path, root, out, opts):
+    """make_cfg of a shipped YAML over the fake ZJU sequence at `root`
+    (views 0-2 train, view 3 tests, every frame of the YAML's
+    num_train_frame tested), its checkpoints, records and results under
+    `out`."""
+    from neuralbody_tpu_torch.config import make_cfg
+    data = []
+    for split in ("train", "test"):
+        data += [f"{split}_dataset.data_root", root,
+                 f"{split}_dataset.human", os.path.basename(root),
+                 f"{split}_dataset.ann_file", f"{root}/annots.npy"]
+    cfg = make_cfg(path, opts=["training_view", "[0, 1, 2]",
+                               "test.frame_sampler_interval", "1",
+                               *data, *opts])
+    for k in ("trained_model_dir", "record_dir", "result_dir"):
+        cfg[k] = os.path.join(out, k)
+    return cfg
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def trainer_fit(torch, dev, card, root, out, failed, fresh=None,
+                opts=()):
+    """The training harness (train/trainer.Trainer) on the 313 config in
+    bf16 as shipped (G = 8, Adam with its exponential schedule), over the
+    fake ZJU sequence at `root` (TRAINER_FRAMES frames, 1024^2 images that
+    the config's ratio halves), two loader workers: fit() of two epochs of
+    TRAINER_DISPATCHES dispatches (save_ep 1, eval_ep 2), then validate()
+    timed on the test view's frames; a second Trainer resumes from
+    latest.ckpt (its begin epoch, recorder step, params, BN stats and
+    moments against the first's, bit for bit); then the first Trainer's
+    epochs timed with the YAML's log_interval (every dispatch read back)
+    and with one read at the epoch's end, beside the bench's fresh half
+    (`fresh`, measured in this run), and the loader alone over as many
+    batches; then a resume into the first Trainer (in place: no new
+    capture) and one more epoch. Returns the launches of fit and of
+    validate."""
+    import shutil
+
+    from neuralbody_tpu_torch.train.fresh import CONFIG_313
+    from neuralbody_tpu_torch.train.optimizer import tree_leaves
+    from neuralbody_tpu_torch.train.trainer import Trainer
+    shutil.rmtree(out, ignore_errors=True)
+    G = 8
+    cfg = trainer_cfg(CONFIG_313, root, out, [
+        "num_train_frame", str(TRAINER_FRAMES),
+        "tpu.compute_dtype", "bfloat16", "tpu.steps_per_dispatch", str(G),
+        "train.num_workers", str(CONFIG_WORKERS),
+        "ep_iter", str(TRAINER_DISPATCHES * G), "train.epoch", "2",
+        "save_ep", "1", "save_latest_ep", "1", "eval_ep", "2",
+        "exp_name", "smoke_fit", *opts])
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=dev)
+    init_s = time.perf_counter() - t0
+    with torch.no_grad():
+        trainer.params["alpha_fc"]["b"] += ALPHA_BIAS
+    try:
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        trainer.fit()
+        sync(torch, dev)
+        fit_s = time.perf_counter() - t0
+        fit_counts = kernel_counts()
+        run = trainer.run
+        captures = run.opt.step_graph.captures if run.opt.step_graph else 0
+        ckpts = sorted(os.listdir(cfg.trained_model_dir))
+        state = [x.clone() for x in tree_leaves(
+            [trainer.params, trainer.bn_stats, trainer.opt.mu,
+             trainer.opt.nu])]
+        step = trainer.recorder.step
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.validate()
+        sync(torch, dev)
+        val_s = time.perf_counter() - t0
+        val_counts = kernel_counts()
+        images = len(trainer.test_dataset)
+
+        # a second Trainer resumes from latest.ckpt
+        second = Trainer(cfg, device=dev)
+        begin = second.resume()
+        resumed = tree_leaves([second.params, second.bn_stats,
+                               second.opt.mu, second.opt.nu])
+        equal = len(resumed) == len(state) and all(
+            torch.equal(a, b) for a, b in zip(state, resumed))
+        second_step = second.recorder.step
+        del second, resumed
+
+        # the Trainer's epochs timed: the YAML's log_interval (every
+        # dispatch read back) and one read at the end (log_interval past
+        # the epoch)
+        timed = {}
+        cfg.ep_iter = TRAINER_TIMED * G
+        for epoch, (what, interval) in enumerate(
+                (("every_dispatch", cfg.log_interval),
+                 ("epoch_end", 10 ** 9)), start=2):
+            cfg.log_interval = interval
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            trainer.train_epoch(epoch)
+            sync(torch, dev)
+            s = time.perf_counter() - t0
+            timed[what] = dict(epoch_s=s, dispatch_ms=1e3 * s / TRAINER_TIMED,
+                               rays_per_s=TRAINER_TIMED * G * cfg.N_rand / s)
+        # the loader alone over as many batches (the pool's workers)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in trainer.run.loader(5))
+        loader_s = time.perf_counter() - t0
+        timed["loader_only"] = dict(batches=n, epoch_s=loader_s,
+                                    ms_per_dispatch=1e3 * loader_s * G / n)
+        # a resume into the same Trainer copies into the tensors the graph
+        # captured: the next epoch replays it
+        trainer.resume()
+        trainer.train_epoch(4)
+        sync(torch, dev)
+        captures_after = (run.opt.step_graph.captures
+                          if run.opt.step_graph else 0)
+        losses = trainer.recorder.scalars["loss"]
+        emit(phase="trainer_fit", config=os.path.relpath(CONFIG_313),
+             compute_dtype=cfg.tpu.compute_dtype, steps_per_dispatch=G,
+             frames=TRAINER_FRAMES, workers=CONFIG_WORKERS,
+             dispatches_per_epoch=TRAINER_DISPATCHES, init_s=init_s,
+             fit_s=fit_s, fit_launches=fit_counts, captures=captures,
+             captures_after_resume=captures_after, checkpoints=ckpts,
+             validate_images=images, validate_ms_per_image=1e3 * val_s
+             / max(images, 1), validate_launches=val_counts,
+             metrics=metrics, resume_begin_epoch=begin,
+             resume_step=second_step, step=step,
+             resume_bit_equal=equal, timed=timed,
+             fresh_bench_dispatch_ms=(
+                 None if fresh is None else 1e3 * G * cfg.N_rand
+                 / fresh["fresh_rays_per_s"]),
+             loss_median=losses.median, tensorboard_writer=trainer
+             .recorder.has_writer, card=card)
+        if (captures != 1 or captures_after != 1
+                or not {"latest.ckpt", "0.ckpt", "1.ckpt"} <= set(ckpts)
+                or not math.isfinite(metrics["psnr"])
+                or not 0 <= metrics["ssim"] <= 1 or images < 4
+                or begin != 2 or second_step != step or not equal
+                or not all(fit_counts[k] > 0 for k in
+                           ("hat_fwd", "hat_bwd", "conv", "conv_dx"))
+                or not val_counts["conv"] > 0):
+            failed.append(f"trainer_fit: captures {captures} and "
+                          f"{captures_after}, checkpoints {ckpts}, metrics "
+                          f"{metrics} over {images} images, resume at "
+                          f"{begin} step {second_step} of {step}, equal "
+                          f"{equal}, launches {fit_counts} {val_counts}")
+    finally:
+        trainer.close()
+    return fit_counts, val_counts
+
+
+def trainer_nerf(torch, dev, card, root, out, failed, opts=()):
+    """The NeRF baseline through the harness: nerf_313.yaml (D=8, W=256,
+    64 + 128 samples, f32, the perturbation on) over the same sequence,
+    one epoch of NERF_STEPS eager steps (one dispatch: the graph takes
+    latent_xyzc's hat batches only), then validate() on the test view.
+    Held: the masked MSE of the epoch's first batch, rendered by eval_step
+    (deterministic) before and after the epoch, falls (the steps' own
+    losses are of eight different batches, perturbed). Returns the
+    launches of fit and of validate."""
+    import shutil
+
+    from neuralbody_tpu_torch.train.step import eval_step, masked_mse
+    from neuralbody_tpu_torch.train.trainer import Trainer
+    from neuralbody_tpu_torch.utils.platform import to_device
+    shutil.rmtree(out, ignore_errors=True)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "nerf", "nerf_313.yaml")
+    cfg = trainer_cfg(path, root, out, [
+        "tpu.steps_per_dispatch", str(NERF_STEPS), "train.num_workers", "0",
+        "ep_iter", str(NERF_STEPS), "train.epoch", "1", "log_interval",
+        "1", "exp_name", "smoke_nerf", *opts])
+    trainer = Trainer(cfg, device=dev)
+    try:
+        with torch.no_grad():
+            for net in ("coarse", "fine"):
+                trainer.params[net]["alpha_linear"]["b"] += NERF_ALPHA_BIAS
+        losses = []
+        dispatch = trainer.run.dispatch_staged
+
+        def recording(staged):
+            stats = dispatch(staged)
+            losses.extend(stats["loss"].tolist())
+            return stats
+
+        trainer.run.dispatch_staged = recording
+        first, _ = next(iter(trainer.run.loader(0)))
+
+        def first_loss():
+            ret = eval_step(trainer.params, first, trainer.run.settings,
+                            device=dev)
+            b = to_device(first, dev)
+            return masked_mse(ret["rgb_map"], b["rgb"], b["ray_mask"]).item()
+
+        before = first_loss()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        trainer.fit()
+        sync(torch, dev)
+        fit_s = time.perf_counter() - t0
+        fit_counts = kernel_counts()
+        after = first_loss()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.validate()
+        sync(torch, dev)
+        val_s = time.perf_counter() - t0
+        val_counts = kernel_counts()
+        images = len(trainer.test_dataset)
+        graphed = trainer.opt.step_graph is not None
+        emit(phase="trainer_nerf", config=os.path.relpath(path),
+             steps=len(losses), losses=losses, fit_s=fit_s,
+             first_batch_loss_before=before, first_batch_loss_after=after,
+             step_ms=1e3 * fit_s / max(len(losses), 1),
+             fit_launches=fit_counts, validate_images=images,
+             validate_ms_per_image=1e3 * val_s / max(images, 1),
+             validate_launches=val_counts, metrics=metrics,
+             graphed=graphed, card=card)
+        if (len(losses) != NERF_STEPS or graphed
+                or not all(map(math.isfinite, losses))
+                or not after < before
+                or not fit_counts["dense"] > 0
+                or not val_counts["dense"] > 0 or images < 1
+                or not math.isfinite(metrics["psnr"])
+                or not 0 <= metrics["ssim"] <= 1):
+            failed.append(f"trainer_nerf: losses {losses}, the first "
+                          f"batch's {before} -> {after}, launches "
+                          f"{fit_counts} {val_counts}, metrics {metrics}, "
+                          f"graphed {graphed}")
+    finally:
+        trainer.close()
+    return fit_counts, val_counts
+
+
 def nerf_family(torch, dev, card, ebatch, rbatch):
     """The NeRF baseline's phases: the dense kernel against its plain
     version on the operands of a real full-width step, the render and the
@@ -750,17 +1071,6 @@ def nerf_family(torch, dev, card, ebatch, rbatch):
         for mlp in params.values():
             mlp["alpha_linear"]["b"] += NERF_ALPHA_BIAS
         return params
-
-    def reset_counts():
-        dk.MM_LAUNCHES = dk.SUM_LAUNCHES = dk.EPILOGUE_LAUNCHES = 0
-        for route in dk.ROUTE_LAUNCHES:
-            dk.ROUTE_LAUNCHES[route] = 0
-
-    def read_counts():
-        return dk.MM_LAUNCHES, dk.SUM_LAUNCHES
-
-    def read_routes():
-        return dict(dk.ROUTE_LAUNCHES, epilogue=dk.EPILOGUE_LAUNCHES)
 
     # -- the kernel against its plain version on a real step's operands -----
     # one full-width step (1024 rays: 65,536 coarse and 196,608 fine points)
@@ -862,11 +1172,12 @@ def nerf_family(torch, dev, card, ebatch, rbatch):
             (x.shape[0], w.shape[1]), device=dev,
             generator=torch.Generator(device=dev).manual_seed(SEED + call))
         ins = [t.detach().clone().requires_grad_() for t in (x, w, b)]
-        before = dk.MM_LAUNCHES
+        (before,) = kernel_counts("dense")
         y = dk.linear(*ins, relu)
         y.backward(gy)
-        if dk.MM_LAUNCHES != before + 3:
-            raise AssertionError(f"linear launched {dk.MM_LAUNCHES - before} "
+        (after,) = kernel_counts("dense")
+        if after != before + 3:
+            raise AssertionError(f"linear launched {after - before} "
                                  "products, not 3")
         y = y.detach()
         gm = gy * (y > 0) if relu else gy
@@ -925,11 +1236,11 @@ def nerf_family(torch, dev, card, ebatch, rbatch):
     # -- the render path: nerf_eval_step, 8192 rays in four chunks ----------
     params = fresh_params()
     n_chunks = EVAL_RAYS // CHUNK_RAYS
-    reset_counts()
+    reset_kernel_counts()
     ret = nerf_eval_step(params, eb_dev, settings(CHUNK_RAYS), device=dev)
     torch.cuda.synchronize()
-    render_launches = read_counts()
-    render_routes = read_routes()
+    render_launches = kernel_counts("dense", "dense_sum")
+    render_routes = kernel_counts()["routes"]
     if render_launches != (2 * MM_PER_MLP * n_chunks, 0):
         raise AssertionError(f"the NeRF render launched {render_launches}, "
                              f"not ({2 * MM_PER_MLP * n_chunks}, 0)")
@@ -1048,21 +1359,23 @@ def nerf_family(torch, dev, card, ebatch, rbatch):
                                           gamma=0.1, decay_epochs=1000)
 
     tp = fresh_params()
-    opt = optimizer.make_optimizer(tp, schedule())
+    opt = optimizer.build_optimizer(tp, schedule())
     gen = torch.Generator(device=dev).manual_seed(SEED)
     s_train = settings(N_RAYS, perturb=True)
     per_step_want = (sum(n_kind.values()), n_kind["dw"])
-    reset_counts()
+    reset_kernel_counts()
     per_step, losses = [], []
     for _ in range(TRAIN_STEPS):
-        before = read_counts()
+        before = kernel_counts("dense", "dense_sum")
         stats = nerf_train_step(tp, opt, tb_dev, s_train, device=dev,
                                 generator=gen)
         losses.append(stats["loss"].item())
-        per_step.append(tuple(a - b for a, b in zip(read_counts(), before)))
+        per_step.append(tuple(
+            a - b for a, b in zip(kernel_counts("dense", "dense_sum"),
+                                  before)))
     torch.cuda.synchronize()
-    train_launches = read_counts()
-    train_routes = read_routes()
+    train_launches = kernel_counts("dense", "dense_sum")
+    train_routes = kernel_counts()["routes"]
     finite = all(torch.isfinite(p).all() for _, p in leaves(tp))
     emit(phase="nerf_train", steps=TRAIN_STEPS, lr=LR, losses=losses,
          launches_per_step=per_step[0], launches=train_launches,
@@ -1578,14 +1891,6 @@ def main():
                                          f"{scale}")
                 conv_err[(kind, mode)] = max(conv_err[(kind, mode)], err)
 
-    def reset_counts():
-        hat_kernel.LAUNCHES = hat_kernel.BWD_LAUNCHES = 0
-        conv_kernel.CONV_LAUNCHES = conv_kernel.CONV_DX_LAUNCHES = 0
-
-    def read_counts():
-        return (hat_kernel.LAUNCHES, hat_kernel.BWD_LAUNCHES,
-                conv_kernel.CONV_LAUNCHES)
-
     def check_maps(ret, rays, what):
         for k in MAPS:
             want = (1, rays, 3) if k == "rgb_map" else (1, rays)
@@ -1607,10 +1912,10 @@ def main():
     # -- 4. the render path: full-width renders on the card ------------------
     launches, renders = {}, {}
     for mode in modes:
-        reset_counts()
+        reset_kernel_counts()
         ret = eval_step(params, batch_dev, settings(mode), device=dev)
         torch.cuda.synchronize()
-        launches[("render", mode)] = read_counts()
+        launches[("render", mode)] = kernel_counts(*HAT_CONV)
         if launches[("render", mode)] != (4, 0, CONV_LAYERS):
             raise AssertionError(f"{mode} render launched the kernels "
                                  f"{launches[('render', mode)]} times, "
@@ -1699,19 +2004,19 @@ def main():
     losses, dx_launches = {}, {}
     for mode in modes:
         tp, tbn = fresh_params()
-        opt = optimizer.make_optimizer(tp, schedule())
+        opt = optimizer.build_optimizer(tp, schedule())
         s = settings(mode, ths)
-        reset_counts()
+        reset_kernel_counts()
         per_step, losses[mode] = [], []
         for _ in range(TRAIN_STEPS):
-            before = read_counts()
+            before = kernel_counts(*HAT_CONV)
             tbn, st = train_step(tp, tbn, opt, tbatch_dev, s, device=dev)
             losses[mode].append(st["loss"].item())
-            per_step.append(tuple(a - b for a, b in zip(read_counts(),
-                                                        before)))
+            per_step.append(tuple(
+                a - b for a, b in zip(kernel_counts(*HAT_CONV), before)))
         torch.cuda.synchronize()
-        launches[("train", mode)] = read_counts()
-        dx_launches[mode] = conv_kernel.CONV_DX_LAUNCHES
+        launches[("train", mode)] = kernel_counts(*HAT_CONV)
+        dx_launches[mode] = kernel_counts()["conv_dx"]
         if dx_launches[mode] != TRAIN_STEPS * CONV_LAYERS:
             raise AssertionError(f"{mode} steps launched "
                                  f"{dx_launches[mode]} dx convs, not "
@@ -1752,14 +2057,14 @@ def main():
     for mode in modes:
         s = settings(mode, ths)
         tp, tbn = fresh_params()
-        opt = optimizer.make_optimizer(tp, schedule())
+        opt = optimizer.build_optimizer(tp, schedule())
         tbn, st = train_steps(tp, tbn, opt, [tbatch_dev] * GRAPH_G
                               + [tbatch2_dev] * GRAPH_G, s, device=dev)
         eager = graph_noise.run_state(tp, tbn, opt, st["loss"])
         eager_tp, eager_tbn, eager_opt = tp, tbn, opt
         # the stale copy: A in both replays
         tp, tbn = fresh_params()
-        opt = optimizer.make_optimizer(tp, schedule())
+        opt = optimizer.build_optimizer(tp, schedule())
         graph, stale_losses = StepGraph(dev), []
         for batches in (batches_a, batches_a):
             tbn, st = graph(tp, tbn, opt, batches, s)
@@ -1774,17 +2079,17 @@ def main():
                           f"{stale_ratio} to GRAPH_TOL, not {STALE_MIN}")
         del graph
         tp, tbn = fresh_params()
-        opt = optimizer.make_optimizer(tp, schedule())
+        opt = optimizer.build_optimizer(tp, schedule())
         graph = StepGraph(dev)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
+        reset_kernel_counts()
         t0 = time.perf_counter()
         tbn, st = graph(tp, tbn, opt, batches_a, s)
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
-        capture_counts = read_counts()
+        capture_counts = kernel_counts(*HAT_CONV)
         pool_peak = torch.cuda.max_memory_allocated() - base
         graph_losses = [st["loss"]]
         tbn, st = graph(tp, tbn, opt, batches_b, s)
@@ -1792,6 +2097,30 @@ def main():
         state = graph_noise.run_state(tp, tbn, opt, torch.cat(graph_losses))
         groups, over = graph_noise.check(state, eager, GRAPH_TOL)
         rows = graph_noise.distances(state, eager)
+        # the faults the rule must catch, made in this graphed state: mu's
+        # largest leaf negated, params' largest leaf at its seeded value
+        # (its distance over its own norm beside: what the rule before
+        # the group scale read)
+        p0, bn0 = fresh_params()
+        before = graph_noise.run_state(
+            p0, bn0, optimizer.build_optimizer(p0, schedule()), [])
+        faults = {}
+        for what, (g, path, bad) in graph_noise.mutations(
+                state, before).items():
+            ratios, _ = graph_noise.check(bad, eager, GRAPH_TOL)
+            a = dict(bad[g])[path].double()
+            b = dict(eager[g])[path].double()
+            faults[what] = dict(
+                groups={k: v["ratio"] for k, v in ratios.items()}, leaf=path,
+                leaf_ratio=dict(graph_noise.distances(bad, eager)[g])[path]
+                / GRAPH_TOL[g],
+                leaf_over_own_norm=((a - b).norm()
+                                    / max(a.norm(), b.norm())).item())
+        del p0, bn0, before
+        emit(phase="graph_mutations", mode=mode, tol=GRAPH_TOL, **faults)
+        if not faults["mu"]["groups"]["mu"] > 1:
+            failed.append(f"{mode} graph with mu's largest leaf negated: "
+                          f"within GRAPH_TOL ({faults['mu']})")
         for _ in range(TRAIN_STEPS // GRAPH_G - 4):
             tbn, st = graph(tp, tbn, opt, batches_a, s)
             graph_losses.append(st["loss"])
@@ -1851,10 +2180,10 @@ def main():
     render_graphs, render_replay = {}, {}
     for mode in modes:
         render_graphs[mode] = RenderGraph(dev)
-        reset_counts()
+        reset_kernel_counts()
         ret = render_graphs[mode](params, batch_dev, settings(mode))
         torch.cuda.synchronize()
-        capture_counts = read_counts()
+        capture_counts = kernel_counts(*HAT_CONV)
         got = check_maps(ret, N_RAYS, f"{mode} graphed render")
         render_replay[mode] = traced_kernels(
             torch, lambda: render_graphs[mode](params, batch_dev,
@@ -1878,11 +2207,11 @@ def main():
     eval_renders = {}
     for branch in branches:
         for mode in modes:
-            reset_counts()
+            reset_kernel_counts()
             ret = eval_step(params, ebatch_dev,
                             eval_settings(mode, branch == "site"), device=dev)
             torch.cuda.synchronize()
-            launches[(f"eval_{branch}", mode)] = read_counts()
+            launches[(f"eval_{branch}", mode)] = kernel_counts(*HAT_CONV)
             if launches[(f"eval_{branch}", mode)] != (0, 0, CONV_LAYERS):
                 raise AssertionError(
                     f"{mode} {branch} render launched the kernels "
@@ -1930,11 +2259,11 @@ def main():
     gbatch = dict(to_device(ebatch, "cpu"), pts=pts)
     s = eval_settings("f32", False)
     with torch.no_grad():
-        reset_counts()
+        reset_kernel_counts()
         alpha = render_density_grid(params, to_device(gbatch, dev), s,
                                     pt_chunk=pts.shape[1])
         torch.cuda.synchronize()
-        launches[("density_grid", "f32")] = read_counts()
+        launches[("density_grid", "f32")] = kernel_counts(*HAT_CONV)
         t0 = time.perf_counter()
         ref = render_density_grid(params_cpu, gbatch, s,
                                   pt_chunk=pts.shape[1])
@@ -2200,7 +2529,7 @@ def main():
     state = {}
     for mode in modes:
         tp, tbn = fresh_params()
-        state[mode] = [tp, tbn, optimizer.make_optimizer(tp, schedule()),
+        state[mode] = [tp, tbn, optimizer.build_optimizer(tp, schedule()),
                        settings(mode, ths)]
 
     def one_step(mode):
@@ -2238,7 +2567,7 @@ def main():
     del state
     for mode in modes:
         tp, tbn = fresh_params()
-        opt = optimizer.make_optimizer(tp, schedule())
+        opt = optimizer.build_optimizer(tp, schedule())
         s = settings(mode, ths)
         batches = stack_steps(tbatch_dev, SCAN_G)
         steps = [scan_slice(batches, i) for i in range(SCAN_G)]
@@ -2303,7 +2632,7 @@ def main():
     from torch.profiler import ProfilerActivity, profile
     for mode in modes:
         tp, tbn = fresh_params()
-        opt = optimizer.make_optimizer(tp, schedule())
+        opt = optimizer.build_optimizer(tp, schedule())
         s = settings(mode, ths)
         for _ in range(2):
             tbn, _ = train_step(tp, tbn, opt, tbatch_dev, s, device=dev)
@@ -2339,8 +2668,7 @@ def main():
         emit(phase="config_pool", dataset_s=dataset_s,
              pool_start_s=pool_start_s, workers=CONFIG_WORKERS)
         config_counts, config_replay = config_path(
-            torch, dev, card, cfg, ds, pool, reset_counts, read_counts,
-            failed)
+            torch, dev, card, cfg, ds, pool, failed)
         fresh = fresh_bench(torch, card, pool)
     finally:
         pool.shutdown()
@@ -2366,6 +2694,25 @@ def main():
     # -- 6b. the NeRF baseline family and the dense product ------------------
     torch.cuda.empty_cache()
     nerf_kernels = nerf_family(torch, dev, card, ebatch, rbatch)
+
+    # -- 6c. the training harness: Trainer.fit / validate / resume on a fake
+    # ZJU sequence, latent_xyzc (graphed, bf16) and the NeRF baseline (eager,
+    # f32) --------------------------------------------------------------------
+    from neuralbody_tpu_torch.utils.fake_zju import make_fake_zju
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    harness = os.path.join(cuda_build.BUILD_DIR, "harness")
+    root = make_fake_zju(os.path.join(harness, "zju", "CoreView_999"),
+                         n_frames=TRAINER_FRAMES, n_cams=TRAINER_CAMS,
+                         hw=TRAINER_HW, n_verts=TRAINER_VERTS, shaded=True)
+    emit(phase="trainer_data", frames=TRAINER_FRAMES, cams=TRAINER_CAMS,
+         hw=TRAINER_HW, vertices=TRAINER_VERTS,
+         seconds=time.perf_counter() - t0)
+    fit_counts, val_counts = trainer_fit(
+        torch, dev, card, root, os.path.join(harness, "fit"), failed, fresh)
+    torch.cuda.empty_cache()
+    nerf_fit, nerf_val = trainer_nerf(torch, dev, card, root,
+                                      os.path.join(harness, "nerf"), failed)
 
     # -- 7. the kernels ---------------------------------------------------
     kernels = []
@@ -2434,6 +2781,22 @@ def main():
         k.update(config_path_launches=None,
                  config_path_replay_launches_per_step=None)
     kernels += nerf_kernels
+    # the training harness's launches (counted from 0 over fit and over
+    # validate): latent_xyzc's in bf16, the NeRF baseline's products (every
+    # kind and route together, on dense_mm's entry)
+    harness_counts = {
+        "hat_interp_level[bf16]": ("hat_fwd", fit_counts, val_counts),
+        "hat_interp_level_bwd[bf16]": ("hat_bwd", fit_counts, val_counts),
+        "sparse_conv_dx[bf16]": ("conv_dx", fit_counts, val_counts),
+        "dense_mm[f32]": ("dense", nerf_fit, nerf_val)}
+    for k in kernels:
+        key, fit, val = harness_counts.get(k["name"], (None, None, None))
+        if k["name"] == "sparse_conv[bf16]":
+            fit = {"n": fit_counts["conv"] - fit_counts["conv_dx"]}
+            val = {"n": val_counts["conv"] - val_counts["conv_dx"]}
+            key = "n"
+        k.update(trainer_fit_launches=None if key is None else fit[key],
+                 trainer_validate_launches=None if key is None else val[key])
     if failed:
         raise AssertionError("; ".join(failed))
     print(json.dumps({"kernels": kernels}), flush=True)

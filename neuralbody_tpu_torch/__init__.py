@@ -20,10 +20,18 @@ package. What it holds:
   * parallel/: the device geometry bank (geom.py) and the prefetcher that
     stages each dispatch group through pinned buffers on a side stream
     (transfer.py).
-  * train/: train_step, eval_step and the NeRF steps, Adam, the CUDA graphs
-    of the G-step dispatch (train_step_scan, train_step_scan_banked) and
-    of a hat render, and fresh.py, training from a config through the
-    datasets, the loader, the bank and the prefetcher.
+  * train/: train_step, eval_step and the NeRF steps, Adam, RAdam and SGD,
+    the CUDA graphs of the G-step dispatch (train_step_scan,
+    train_step_scan_banked) and of a hat render, fresh.py, training from a
+    config through the datasets, the loader, the bank and the prefetcher,
+    and the harness: trainer.Trainer (fit, resume, validate), checkpoints
+    in the JAX package's file layout, the recorder.
+  * evaluators/: PSNR / SSIM and the "if_nerf", "neural_volume" and
+    "if_nerf_mesh" evaluators.
+  * utils/: transplants from the JAX package and the reference's .pth,
+    profiling, the synthetic scenes and a fake ZJU-MoCap writer.
+  * train_net.py: the training entry point
+    (python -m neuralbody_tpu_torch.train_net --cfg_file ...).
   * bench.py: the training throughput bench (fresh and broadcast halves).
 
 Entry points run on the card unless the caller passes device="cpu", where

@@ -61,7 +61,7 @@ from .models.sparse_conv_net import EncoderStatic
 from .renderer.renderer import RenderSettings, precompute_hat_device
 from .train.fresh import ConfigRun, synthetic_cfg
 from .train.graphs import RenderGraph
-from .train.optimizer import make_optimizer, tree_map
+from .train.optimizer import build_optimizer, tree_map
 from .train.step import eval_step, scan_slice, train_step_scan, train_steps
 from .utils.platform import resolve_device, to_device
 from .utils.synthetic import SyntheticDataset, make_batch
@@ -87,7 +87,7 @@ def _setup(out_sh, site_caps, num_train_frame, dtype="bfloat16",
     params, bn_stats = latent_xyzc.init(
         torch.Generator().manual_seed(0), num_train_frame=num_train_frame,
         nv=nv, device=device)
-    opt = make_optimizer(params, lambda step: 5e-4, clip=40.0)
+    opt = build_optimizer(params, lambda step: 5e-4, clip=40.0)
     return settings, params, bn_stats, opt
 
 

@@ -150,8 +150,16 @@ def load_vertices(data_root, vertices_dir, i):
 
 
 def imread(path):
-    """imageio.v2.imread, imported at the first call: a machine that trains
-    only on utils/synthetic.SyntheticDataset needs no imageio (the JAX
-    package's datasets import it with the module)."""
-    import imageio.v2 as imageio
-    return imageio.imread(path)
+    """An image file as imageio.v2.imread reads it (RGB or RGBA channel
+    order, a grey image 2-D), decoded by OpenCV, which the port needs
+    anyway, so that imageio need not be installed. Both decode the JPEG
+    and PNG files the datasets read to the same pixels
+    (tests/test_torch_datasets.py holds the datasets against the JAX
+    package's, which read with imageio)."""
+    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise FileNotFoundError(f"no image could be read from {path}")
+    if img.ndim == 3:
+        img = cv2.cvtColor(img, cv2.COLOR_BGRA2RGBA if img.shape[2] == 4
+                           else cv2.COLOR_BGR2RGB)
+    return img

@@ -12,17 +12,27 @@ run (the hat backward's atomicAdd to device memory, index_add_ in
 scatter_vertex_codes), so eager runs of the same steps from the same seeded
 state differ, and the encoder's conditioning amplifies that from step to
 step. The comparison: per leaf of the state a run leaves (params, Adam's
-mu and nu, the BN running stats, the losses as one leaf), the relative L2
-distance ||a - b|| / max(||a||, ||b||); a leaf whose two tensors are equal
-is at 0. A group's distance is its farthest leaf's.
+mu and nu, the BN running stats, the losses as one leaf), the L2 distance
+||a - b|| over the group's scale, the largest max(||a_l||, ||b_l||) of the
+group's leaves l; a leaf whose two tensors are equal is at 0. A group's
+distance is its farthest leaf's. The scale is the group's and not the
+leaf's because near-zero leaves (BatchNorm scales and biases whose
+gradients are mostly noise) flip the sign of their Adam steps from run to
+run: over its own norm such a leaf moves by up to 2 between two correct
+runs, so a tolerance over leaf norms passes any state at all (a negated
+leaf is at 2 too). Over the group's largest norm the same noise is small,
+and a fault in a leaf that carries the group's weight (a negated or stale
+moment or parameter) stands out; the price is that a fault confined to a
+leaf far smaller than its group's largest reads small too.
 
 For each scene and mode the tool makes --runs eager runs of the scene's
 steps, prints the farthest pair's distance per group (the spread), and
 holds --graph-runs graphed runs (StepGraph, the scene's dispatches) and one
 graphed run whose second dispatch replays the first's batches (a stale
 copy: the fault the check must catch) against the first eager run, each as
-a ratio to 4 x the spread. One JSON line per scene and mode, with the
-card's name and power limit.
+a ratio to 4 x the spread; and the first graphed run's state with the two
+faults of mutations() made in it. One JSON line per scene and mode, with
+the card's name and power limit.
 
 Scenes:
   full    chip_smoke.py's graph_vs_eager: 1024 rays x 64 samples, 6890
@@ -78,18 +88,30 @@ def run_state(params, bn_stats, opt, losses):
     return out
 
 
-def rel_dist(a, b):
-    """||a - b|| / max(||a||, ||b||) in f64; 0 where a equals b."""
-    if torch.equal(a, b):
-        return 0.0
-    a, b = a.double(), b.double()
-    return ((a - b).norm() / torch.maximum(a.norm(), b.norm())).item()
+def group_scale(x, y, group):
+    """The scale of a group's distances: the largest max(||a||, ||b||) of
+    its leaves over two run_states, in f64."""
+    return max(max(a.double().norm().item(), b.double().norm().item())
+               for (_, a), (_, b) in zip(x[group], y[group]))
 
 
 def distances(x, y):
-    """{group: [(path, relative distance)]} between two run_states."""
-    return {g: [(p, rel_dist(a, b)) for (p, a), (_, b) in zip(x[g], y[g])]
-            for g in GROUPS}
+    """{group: [(path, distance)]} between two run_states: a leaf's
+    ||a - b|| over its group's scale (group_scale), in f64; 0 where a
+    equals b."""
+    out = {}
+    for g in GROUPS:
+        scale = group_scale(x, y, g)
+        out[g] = [(p, 0.0 if torch.equal(a, b) else
+                   (a.double() - b.double()).norm().item() / scale)
+                  for (p, a), (_, b) in zip(x[g], y[g])]
+    return out
+
+
+def ratio(d, tol):
+    """A distance over its tolerance; where the tolerance is 0 (the eager
+    runs agreed exactly), 0 for a distance of 0 and inf for any other."""
+    return d / tol if tol else 0.0 if d == 0 else math.inf
 
 
 def check(graph, eager, tol):
@@ -99,10 +121,25 @@ def check(graph, eager, tol):
     groups, over = {}, []
     for g, rows in distances(graph, eager).items():
         path, worst = max(rows, key=lambda r: r[1])
-        groups[g] = dict(worst=worst, path=path, ratio=(
-            worst / tol[g] if tol[g] else 0.0 if worst == 0 else math.inf))
+        groups[g] = dict(worst=worst, path=path, ratio=ratio(worst, tol[g]))
         over += [(p, d, tol[g]) for p, d in rows if not d <= tol[g]]
     return groups, over
+
+
+def mutations(state, before):
+    """Two faults made in a run_state that the check must catch: "mu" with
+    the largest leaf of Adam's mu negated, and "params" with the largest
+    parameter leaf left at its value in `before` (the run_state of the
+    seeded state the steps started from). {name: (group, path of the
+    leaf, the state with the fault)}"""
+    out = {}
+    for name, fault in (("mu", lambda i, t: -t),
+                        ("params", lambda i, t: before["params"][i][1])):
+        rows = list(state[name])
+        i = max(range(len(rows)), key=lambda j: rows[j][1].norm().item())
+        rows[i] = (rows[i][0], fault(i, rows[i][1]))
+        out[name] = (name, rows[i][0], dict(state, **{name: rows}))
+    return out
 
 
 def spread(runs):
@@ -210,7 +247,7 @@ def _hat_scene(dev, mode, n_rays, n_verts, vox, n_samples, seed, schedule,
                              num_train_frame=num_train_frame, nv=n_verts,
                              device=dev)
         params["alpha_fc"]["b"] += alpha_bias
-        return params, bn, optimizer.make_optimizer(params, schedule())
+        return params, bn, optimizer.build_optimizer(params, schedule())
     return (a, b), settings, init
 
 
@@ -304,13 +341,24 @@ def main(argv=None):
                 for g, w in spread(runs).items():
                     worst[g] = max(worst[g], w)
             tol = {g: MARGIN * d for g, (d, _) in worst.items()}
-            ratios, teeth = {g: [] for g in GROUPS}, None
+            ratios, teeth, faults = {g: [] for g in GROUPS}, None, {}
+            p0, bn0, opt0 = init()
+            before = run_state(p0, bn0, opt0, [])
+            del p0, bn0, opt0
             for (steps, disp, stale), runs in zip(chains, eager):
-                for _ in range(args.graph_runs):
-                    groups, _ = check(graph_run(dev, init, disp, settings),
-                                      runs[0], tol)
+                for r in range(args.graph_runs):
+                    state = graph_run(dev, init, disp, settings)
+                    groups, _ = check(state, runs[0], tol)
                     for g in GROUPS:
                         ratios[g].append(groups[g]["ratio"])
+                    if r == 0 and not faults:
+                        for what, (g, path, bad) in mutations(
+                                state, before).items():
+                            groups, _ = check(bad, runs[0], tol)
+                            faults[what] = dict(
+                                {k: v["ratio"] for k, v in groups.items()},
+                                leaf=path, leaf_ratio=ratio(dict(distances(
+                                    bad, runs[0])[g])[path], tol[g]))
                 if stale is not None:
                     teeth, _ = check(graph_run(dev, init, stale, settings),
                                      runs[0], tol)
@@ -321,7 +369,7 @@ def main(argv=None):
                         for g, (d, p) in worst.items()},
                 tol=tol, margin=MARGIN, graph_runs=args.graph_runs,
                 graph_ratio_max={g: max(r) for g, r in ratios.items()},
-                stale_copy=teeth,
+                stale_copy=teeth, mutation_ratio=faults,
                 stale_copy_worst_ratio=None if teeth is None else max(
                     v["ratio"] for v in teeth.values()))), flush=True)
             torch.cuda.empty_cache()

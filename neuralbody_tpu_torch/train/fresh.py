@@ -25,11 +25,14 @@ is stacked on the host and copied by train_step_scan. The tail of an epoch
 that does not fill G is dropped, as the JAX Trainer drops it, unless the
 epoch is shorter than G.
 
-With device="cpu" every family trains (the scan steps are train_steps'
-loop there); on the card the graph takes latent_xyzc's hat batches only,
-and a family without a hat plan (the NeRF baseline) raises there until its
-steps are graphed (ROADMAP.md section 1, item 13). Checkpoints and the
-Trainer are not ported yet (item 6).
+Every family trains, on the card as on the CPU: train/step.py sends
+latent_xyzc's hat batches under Adam through the CUDA graph, and a batch
+without a hat plan (the NeRF baseline) or another optimizer through the
+eager loop (ROADMAP.md section 1, item 13 graphs those later). Each epoch
+reseeds the render's generator the JAX Trainer's way (epoch * 100003 +
+cfg.seed), so a run resumed at an epoch boundary makes the same draws.
+train/trainer.Trainer adds checkpoints, the recorder, validation and fit
+on top.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ from ..datasets.loader import make_data_loader, make_dataset
 from ..parallel.geom import GeomBank, bank_capacity
 from ..parallel.transfer import DevicePrefetcher, StagingRing
 from ..utils.platform import resolve_device
-from .optimizer import make_lr_schedule, make_optimizer
+from .optimizer import make_optimizer
 from .step import train_step_scan, train_step_scan_banked
 
 CONFIG_313 = os.path.join(
@@ -74,23 +77,6 @@ def with_geom(batch, meta, cache):
                              for n in frames[0]})
 
 
-def optimizer_from_cfg(params, cfg):
-    """Adam over `params` with cfg.train's learning rate, scheduler and
-    weight decay and cfg.grad_clip_value (the JAX package's
-    train/optimizer.make_optimizer(cfg))."""
-    sch = cfg.train.scheduler
-    schedule = make_lr_schedule(
-        cfg.train.lr, sch.type, ep_iter=cfg.ep_iter, gamma=sch.gamma,
-        decay_epochs=sch.get("decay_epochs", 1000),
-        milestones=tuple(sch.get("milestones", ())),
-        warmup_factor=sch.get("warmup_factor", 1.0 / 3),
-        warmup_iters=sch.get("warmup_iters", 5),
-        warmup_method=sch.get("warmup_method", "linear"))
-    return make_optimizer(params, schedule, optim=cfg.train.optim,
-                          clip=float(cfg.get("grad_clip_value", 40.0)),
-                          weight_decay=float(cfg.train.weight_decay))
-
-
 def stack_batches(batches):
     """Batches (numpy, or tensors on one device) stacked on a leading step
     axis: one dispatch."""
@@ -111,7 +97,8 @@ class ConfigRun:
     unless "cpu" is given; bank: train on a device geometry bank through
     the prefetcher (default) or stack each group's geometry on the host;
     staging: the StagingRing of the banked path (default PREFETCH_DEPTH + 1
-    sets). Attributes: settings, params, bn_stats, opt, hat_state (the
+    sets). Attributes: settings, params, bn_stats, opt and schedule
+    (train/optimizer.make_optimizer(cfg)), generator, hat_state (the
     plan's static sizes, derived by the first epoch's first batches), G,
     geom_cache (the loader's frames), bank (a GeomBank, or None) and
     staging.
@@ -140,9 +127,10 @@ class ConfigRun:
         seed = int(cfg.get("seed", 0))
         self.params, self.bn_stats = init_fn(
             torch.Generator().manual_seed(seed), device=self.device)
-        self.opt = optimizer_from_cfg(self.params, cfg)
+        self.opt, self.schedule = make_optimizer(cfg, self.params)
         # the render's own draws (a NeRF family's perturbation and
-        # importance samples, the raw-noise term)
+        # importance samples, the raw-noise term), reseeded every epoch
+        self.seed = seed
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.G = max(1, int(cfg.tpu.steps_per_dispatch))
         self.hat_state = {}
@@ -208,6 +196,9 @@ class ConfigRun:
         staged by then is dispatched after each batch, as the JAX Trainer
         does (neuralbody_tpu/train/trainer.py:210-226)."""
         loader = self.loader(epoch) if loader is None else loader
+        # the JAX Trainer's key of the epoch (trainer.py:119-120); the same
+        # Generator object, so that a graph that registered it stays valid
+        self.generator.manual_seed(epoch * 100003 + self.seed)
         pending, keys, full = [], [], False
         if self.bank is None:
             for batch, _ in loader:

@@ -33,7 +33,7 @@ from ..parallel.transfer import Staged
 from ..renderer.dispatch import get_render_fn
 from ..renderer.renderer import RenderSettings
 from ..utils.platform import resolve_device, to_device
-from .optimizer import tree_leaves, tree_map
+from .optimizer import Adam, tree_leaves, tree_map
 from .step import loss_and_grads, merge_bn_stats, scan_length, scan_slice
 
 WARMUP = 1   # eager runs of a graph's body on a side stream before capture
@@ -148,6 +148,9 @@ class StepGraph:
     def __call__(self, params, bn_stats, opt, batches, settings,
                  generator=None, bank=None):
         _hat_batch(batches, settings, "StepGraph")
+        if not isinstance(opt, Adam):
+            raise ValueError(f"StepGraph reads Adam's moments and per-step "
+                             f"scalars, not {type(opt).__name__}'s")
         state = tree_leaves(params) + tree_leaves(opt.mu) + tree_leaves(opt.nu)
         _check_on(self.device, state, "params and the optimizer's state")
         staged = batches if isinstance(batches, Staged) else None

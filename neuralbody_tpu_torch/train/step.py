@@ -21,7 +21,7 @@ from ..parallel.geom import take
 from ..parallel.transfer import Staged
 from ..renderer.dispatch import get_render_fn
 from ..utils.platform import resolve_device, to_device
-from .optimizer import tree_leaves, tree_map
+from .optimizer import Adam, tree_leaves, tree_map
 
 
 def masked_mse(pred, target, mask):
@@ -132,25 +132,37 @@ def scan_length(batches):
     return steps.pop()
 
 
+def graphed(device, batches, opt):
+    """Whether a dispatch of `batches` under `opt` replays a CUDA graph:
+    on the card, for latent_xyzc's hat batches (they carry hat_sort) under
+    Adam, whose moments and per-step scalars the graph reads. Every other
+    dispatch (the CPU, the NeRF baseline's batches, RAdam and SGD) runs
+    train_steps' eager loop: those paths have no graph yet (ROADMAP.md
+    section 1, item 13)."""
+    return (device.type == "cuda" and "hat_sort" in batches
+            and isinstance(opt, Adam))
+
+
 def train_step_scan(params, bn_stats, opt, batches, settings, device=None,
                     generator=None):
     """G optimization steps in one dispatch (counterpart of the JAX
     package's train_step_scan).
 
     batches: one batch tree (numpy or tensors) whose every leaf has a
-    leading axis of G steps. On the card (the default) the G steps replay
-    as one CUDA graph of latent_xyzc's train_step, held in opt.step_graph
-    (train/graphs.StepGraph), captured at the first call and again when
-    the shapes, dtypes, settings or the parameters' or moments' tensors
-    change; a failed capture or replay raises. With device="cpu" it runs
-    train_steps' plain loop over the G batches.
+    leading axis of G steps. On the card (the default) latent_xyzc's hat
+    batches under Adam replay as one CUDA graph of its train_step, held in
+    opt.step_graph (train/graphs.StepGraph), captured at the first call and
+    again when the shapes, dtypes, settings or the parameters' or moments'
+    tensors change; a failed capture or replay raises. Any other dispatch
+    (graphed() says which) and every dispatch with device="cpu" runs
+    train_steps' loop over the G batches.
 
     Returns (bn_stats, stats stacked over the G steps). On the card the
     returned bn_stats are the graph's own buffers, which its next replay
     overwrites: pass them back in.
     """
     device = resolve_device(device)
-    if device.type == "cpu":
+    if not graphed(device, batches, opt):
         return _plain_scan(params, bn_stats, opt, batches, settings, device,
                            generator)
     from .graphs import StepGraph   # graphs.py builds on this module
@@ -169,12 +181,13 @@ def train_step_scan_banked(params, bn_stats, opt, batches, bank, settings,
     geom_rows, int64 [G, B] rows of `bank` (parallel/geom.GeomBank), in
     place of geom: numpy, tensors, or a staging set of
     parallel/transfer.StagingRing. On the card it is train_step_scan's
-    StepGraph with the selection inside the graph; with device="cpu" it is
-    train_steps' loop, step i given take(bank, geom_rows[i]). Returns
+    StepGraph with the selection inside the graph (where graphed() says
+    so); otherwise it is train_steps' loop, step i given take(bank,
+    geom_rows[i]). Returns
     (bn_stats, stats stacked over the G steps), as train_step_scan.
     """
     device = resolve_device(device)
-    if device.type == "cpu":
+    if not graphed(device, batches, opt):
         return _plain_scan(params, bn_stats, opt, batches, settings, device,
                            generator, bank)
     from .graphs import StepGraph
@@ -188,7 +201,10 @@ def _plain_scan(params, bn_stats, opt, batches, settings, device, generator,
                 bank=None):
     """train_steps' loop over the G steps of a batch tree, each step's
     geometry taken from `bank` when one is given. A staging set
-    (parallel/transfer.Staged) is released once the steps have read it."""
+    (parallel/transfer.Staged) is waited for before the steps read it and
+    released once they have."""
+    if isinstance(batches, Staged):
+        batches.wait()
     steps = []
     for i in range(scan_length(batches)):
         step = scan_slice(batches, i)

@@ -134,7 +134,7 @@ def test_banked_scan_matches_jax(weights, scan_scene):
     tb["geom_rows"] = bank.rows([[FRAME]] * G)
     np.testing.assert_array_equal(tb["geom_rows"], np.asarray(jrows))
     tp, tbn = params_from_jax(params, stats)
-    opt = t_opt.make_optimizer(tp, t_opt.make_lr_schedule(LR, "multi_step"))
+    opt = t_opt.build_optimizer(tp, t_opt.make_lr_schedule(LR, "multi_step"))
     tbn, tst = t_step.train_step_scan_banked(tp, tbn, opt, tb, bank, ts,
                                              device="cpu")
     assert tst["loss"].shape == (G,) and opt.count == G
@@ -156,7 +156,7 @@ def test_banked_scan_is_the_stacked_scan_on_the_cpu(weights, scan_scene):
     runs = []
     for banked in (True, False):
         tp, tbn = params_from_jax(*weights)
-        opt = t_opt.make_optimizer(tp, lambda t: LR * 0.9 ** t)
+        opt = t_opt.build_optimizer(tp, lambda t: LR * 0.9 ** t)
         if banked:
             tbn, st = t_step.train_step_scan_banked(
                 tp, tbn, opt, _banked(batches), bank, ts, device="cpu")

@@ -17,11 +17,13 @@ import pytest
 import torch
 
 import neuralbody_tpu.datasets  # noqa: F401  (registers plugins)
+import neuralbody_tpu.evaluators  # noqa: F401
 import neuralbody_tpu.models  # noqa: F401
 import neuralbody_tpu.renderer  # noqa: F401
 import neuralbody_tpu.train  # noqa: F401
 from neuralbody_tpu import config as j_cfg
 import neuralbody_tpu_torch.datasets  # noqa: F401  (registers plugins)
+import neuralbody_tpu_torch.evaluators  # noqa: F401
 import neuralbody_tpu_torch.models  # noqa: F401
 import neuralbody_tpu_torch.renderer  # noqa: F401
 import neuralbody_tpu_torch.train  # noqa: F401
@@ -127,7 +129,7 @@ class TestRegistry:
 
     @pytest.mark.parametrize("kind,name", [
         ("network", "tpose_xyzc"), ("model_static", "tpose_xyzc"),
-        ("renderer", "tpose_renderer"), ("evaluator", "if_nerf"),
+        ("renderer", "tpose_renderer"),
         ("visualizer", "if_nerf"), ("dataset", "tpose"),
         ("dataset", "multi_view_demo"), ("dataset", "multi_view_mesh"),
         ("thing", "nope")])
@@ -142,7 +144,8 @@ class TestRegistry:
                              "if_clight_renderer_msk", "if_mesh_renderer",
                              "volume_mesh_renderer", "volume_renderer"],
                 "trainer": ["if_nerf_clight", "nerf", "tpose"],
-                "dataset": ["monocular", "multi_view"]}
+                "dataset": ["monocular", "multi_view"],
+                "evaluator": ["if_nerf", "if_nerf_mesh", "neural_volume"]}
         for kind, names in want.items():
             assert t_cfg.registered(kind) == names, kind
             for n in names:

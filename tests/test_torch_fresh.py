@@ -229,6 +229,7 @@ def test_tail_group_is_dropped_unless_the_epoch_is_shorter():
     Trainer's rule)."""
     run = fresh.ConfigRun.__new__(fresh.ConfigRun)
     run.G, run.bank = 3, None
+    run.generator, run.seed = torch.Generator(), 0   # epoch() reseeds it
     run.dispatch = lambda batches: len(batches)
     for n, want in ((7, [3, 3]), (6, [3, 3]), (2, [2]), (0, [])):
         assert list(run.epoch(0, loader=[({}, {})] * n)) == want, n
@@ -239,6 +240,7 @@ def test_banked_tail_group_is_dropped_unless_the_epoch_is_shorter():
     come out in order with their frames' keys."""
     run = fresh.ConfigRun.__new__(fresh.ConfigRun)
     run.G, run.bank = 3, object()
+    run.generator, run.seed = torch.Generator(), 0   # epoch() reseeds it
     run.staging = transfer.StagingRing("cpu")
     run.stage = lambda item: (len(item[0]), item[1])
     run.dispatch_staged = lambda staged: staged

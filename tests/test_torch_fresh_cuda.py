@@ -12,14 +12,16 @@ on the card with
 `python -m pytest --noconftest tests/test_torch_fresh_cuda.py -q`.
 
 Tolerances: a graphed run against one eager run of the same four steps
-from the same state, per leaf by the relative L2 distance (tools/graph_noise
-check), at most TOL of its group: 4x the farthest pair of eager runs of
-these steps in two calls of 32 runs (the "fresh" scene of
-tools/graph_noise.py on an H100 80GB HBM3 at 700 W), the larger of bf16's
-and f32's. A run whose second dispatch
-replays the first's batches (a stale copy) must be over TOL by STALE_MIN in
-its worst group. The pool's batches equal the thread loader's bit for bit,
-and so do the staged batches the graph copies in.
+from the same state, per leaf by the L2 distance over its group's scale
+(tools/graph_noise check), at most TOL of its group: 4x the farthest
+pair of 32 eager runs of these steps (the "fresh" scene of
+tools/graph_noise.py on an H100 80GB HBM3 at 700 W), the largest of
+bf16's and f32's over three separate runs of the tool; the loss group's
+rule is older and keeps its tolerance from two earlier calls (2.8x the
+largest loss spread measured since). A run whose second
+dispatch replays the first's batches (a stale copy) must be over TOL by
+STALE_MIN in its worst group. The pool's batches equal the thread
+loader's bit for bit, and so do the staged batches the graph copies in.
 """
 import numpy as np
 import pytest
@@ -38,7 +40,8 @@ from neuralbody_tpu_torch.train.step import (train_step_scan_banked,
 pytestmark = pytest.mark.cuda
 
 G = 2
-TOL = {"params": 0.2, "mu": 0.6, "nu": 0.45, "bn": 0.019, "loss": 8e-6}
+TOL = {"params": 1.33e-3, "mu": 1.49e-2, "nu": 2.73e-3, "bn": 1.24e-4,
+       "loss": 8e-6}
 STALE_MIN = 10
 
 
@@ -87,6 +90,7 @@ def test_loader_batches_through_the_graph_match_eager_steps(dev, dtype):
     groups, over = check(
         _graphed(cfg, ds, dev, hs, [steps[:G], steps[G:]]),
         _eager(cfg, ds, dev, hs, steps), TOL)
+    print("ratio_to_TOL", {g: v["ratio"] for g, v in groups.items()})
     assert not over, (over[:5], groups)
 
 
@@ -186,6 +190,7 @@ def test_banked_graph_matches_eager_steps(dev, dtype):
     steps = [with_geom(b, m, run.geom_cache) for b, m in loaded]
     groups, over = check(graph, _eager(cfg, ds, dev, run.hat_state, steps),
                          TOL)
+    print("ratio_to_TOL", {g: v["ratio"] for g, v in groups.items()})
     assert not over, (over[:5], groups)
 
 
@@ -222,4 +227,5 @@ def test_a_frame_installed_between_replays(dev):
     graph = run_state(run.params, run.bn_stats, run.opt, torch.cat(losses))
     steps = [with_geom(b, m, cache) for b, m in first + second]
     groups, over = check(graph, _eager(cfg, ds, dev, hs, steps), TOL)
+    print("ratio_to_TOL", {g: v["ratio"] for g, v in groups.items()})
     assert not over, (over[:5], groups)

@@ -8,14 +8,19 @@ the card with `python -m pytest --noconftest tests/test_torch_graph_cuda.py
 Tolerances: the hat backward's float atomics and index_add_'s change order
 from run to run, so eager runs of the same steps differ. A graph's run is
 held against one eager run of the same steps from the same state, per leaf
-(the losses, every parameter, Adam moment and BN running stat) by the
-relative L2 distance ||g - e|| / max(||g||, ||e||) (tools/graph_noise.py
-check), at most TOL of its group: 4x the farthest pair of eager runs of
-this scene's steps in three calls of 24-32 runs (the "small" scene of
-tools/graph_noise.py on an H100 80GB HBM3 at 700 W), the larger of bf16's
-and f32's (in bf16 the runs agreed exactly). chip_smoke.py holds
-the full-width steps so. A graphed render against eval_step: 1e-4 (f32) /
-2e-2 (bf16) of scale, chip_smoke.py's render tolerances.
+(the losses, every parameter, Adam moment and BN running stat) by the L2
+distance ||g - e|| over the group's scale, the largest max(||g_l||,
+||e_l||) of its leaves (tools/graph_noise.py check), at most TOL of its
+group: 4x the farthest pair of 32 eager runs of this scene's steps (the
+"small" scene of tools/graph_noise.py on an H100 80GB HBM3 at 700 W), the
+largest over three separate runs of the tool (in bf16 the runs agreed
+exactly; in f32 this scene's spread moved by up to 560x from one run of
+the tool to another); the loss group's rule is older and keeps its
+tolerance from three earlier calls (1.5x the largest loss spread measured
+since).
+chip_smoke.py holds the full-width steps so. A graphed render against
+eval_step: 1e-4 (f32) / 2e-2 (bf16) of scale, chip_smoke.py's render
+tolerances.
 """
 import pytest
 import torch
@@ -41,7 +46,7 @@ G = 2
 NV = 500
 VOX = 0.02
 N_RAYS, N_SAMPLES, SEED = 64, 16, 3
-TOL = {"params": 0.034, "mu": 0.081, "nu": 0.035, "bn": 5.8e-4,
+TOL = {"params": 3.03e-4, "mu": 2.35e-3, "nu": 5.25e-4, "bn": 2.66e-5,
        "loss": 3.7e-7}
 RENDER_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 KERNELS = {"hat_interp_kernel": 4, "hat_interp_bwd_kernel": 4,
@@ -83,7 +88,7 @@ def _fresh(dev):
     params, bn = lx.init(torch.Generator().manual_seed(0), num_train_frame=1,
                          nv=NV, device=dev)
     params["alpha_fc"]["b"] += 1.0   # random weights leave the rays empty
-    return params, bn, optimizer.make_optimizer(params, lambda t: 5e-4)
+    return params, bn, optimizer.build_optimizer(params, lambda t: 5e-4)
 
 
 def _eager(dev, steps, settings):
@@ -96,6 +101,7 @@ def _eager(dev, steps, settings):
 def _within_tol(graph, eager):
     """Every leaf within its group's TOL of the eager run's."""
     groups, over = check(graph, eager, TOL)
+    print("ratio_to_TOL", {g: v["ratio"] for g, v in groups.items()})
     assert not over, (over[:5], groups)
 
 

@@ -399,7 +399,7 @@ def test_train_step_matches_jax_with_optax():
     # the JAX step donates its params: keep the numpy originals apart
     jp = jax.tree.map(jnp.asarray, jparams)
     jopt = tx.init(jp)
-    opt = t_opt.make_optimizer(tparams, t_opt.make_lr_schedule(
+    opt = t_opt.build_optimizer(tparams, t_opt.make_lr_schedule(
         LR, "multi_step"))
     losses = []
     for step in range(1, 4):
@@ -430,7 +430,7 @@ def test_nerf_steps_default_to_the_card():
         pytest.skip("a card is present")
     _, tparams = _weights(NARROW)
     _, ts = _settings(NARROW, n_samples=8, n_importance=4)
-    opt = t_opt.make_optimizer(tparams, lambda t: LR)
+    opt = t_opt.build_optimizer(tparams, lambda t: LR)
     with pytest.raises(RuntimeError, match="CUDA"):
         t_step.nerf_eval_step(tparams, _rays(32), ts)
     with pytest.raises(RuntimeError, match="CUDA"):

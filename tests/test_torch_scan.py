@@ -87,7 +87,7 @@ def test_train_step_scan_matches_jax(weights, scan_scene):
         jax.random.split(jax.random.PRNGKey(0), G), js, tx)
 
     tp, tbn = params_from_jax(params, stats)
-    opt = t_opt.make_optimizer(tp, t_opt.make_lr_schedule(LR, "multi_step"))
+    opt = t_opt.build_optimizer(tp, t_opt.make_lr_schedule(LR, "multi_step"))
     tbn, tst = t_step.train_step_scan(tp, tbn, opt, batches, ts,
                                       device="cpu")
     assert tst["loss"].shape == (G,)
@@ -108,7 +108,7 @@ def test_train_step_scan_is_train_steps_on_the_cpu(weights, scan_scene):
     runs = []
     for scan in (True, False):
         tp, tbn = params_from_jax(*weights)
-        opt = t_opt.make_optimizer(tp, lambda t: LR * 0.9 ** t)
+        opt = t_opt.build_optimizer(tp, lambda t: LR * 0.9 ** t)
         if scan:
             tbn, st = t_step.train_step_scan(tp, tbn, opt, batches, ts,
                                              device="cpu")
@@ -198,7 +198,7 @@ def test_second_train_step_builds_no_tensor(weights, monkeypatch):
     batch, static, hs = _scene(1)
     _, ts = _settings(static, hs)
     tp, tbn = params_from_jax(*weights)
-    opt = t_opt.make_optimizer(tp, lambda t: LR)
+    opt = t_opt.build_optimizer(tp, lambda t: LR)
     tb = to_device(batch, "cpu")
     tbn, _ = t_step.train_step(tp, tbn, opt, tb, ts, device="cpu")
     built, real = [], torch.tensor
@@ -256,7 +256,7 @@ def test_adam_device_scalars_match_the_float_step(weight_decay):
 
     n = t_opt.Adam.TABLE_STEPS + 6
     runs = [params() for _ in range(3)]
-    opts = [t_opt.make_optimizer(p, schedule, weight_decay=weight_decay)
+    opts = [t_opt.build_optimizer(p, schedule, weight_decay=weight_decay)
             for p in runs]
     table = opts[2].scalars(n)
     assert table.dtype == torch.float32 and table.shape == (n, 3)
@@ -277,7 +277,7 @@ def test_adam_device_scalars_match_the_float_step(weight_decay):
 
 def test_load_state_dict_keeps_the_tensors():
     p = {"a": torch.zeros(4, 3), "b": [{"w": torch.zeros(5)}]}
-    opt = t_opt.make_optimizer(p, lambda t: LR)
+    opt = t_opt.build_optimizer(p, lambda t: LR)
     before = [t.data_ptr() for t in t_opt.tree_leaves([opt.mu, opt.nu])]
     state = {"mu": t_opt.tree_map(lambda t: torch.rand(t.shape), p),
              "nu": t_opt.tree_map(lambda t: torch.rand(t.shape), p),
