@@ -60,7 +60,18 @@ through their entry points:
     timed with a read of every dispatch and with one read at its end
     beside the fresh half's dispatch, a resume in place (no new capture);
     "trainer_nerf", nerf_313.yaml (f32) through the eager branch, one
-    epoch of eight steps and validate().
+    epoch of eight steps and validate();
+  * the first trained model and the tool entry point over it:
+    "quality_short", tools/convergence_run.main for two epochs of 250
+    steps at full width (f32, G = 8, the shaded fixture at 512^2: 5
+    training views, 1 held out), the held-out PSNR after them at least
+    QUALITY_MIN_PSNR, then tools/novel_pose_eval.main on two unseen poses;
+    "run_entry", every runner of neuralbody_tpu_torch/run.py over that
+    checkpoint: evaluate against Trainer.validate, visualize in the four
+    vis_* modes (orbit views, playback frames, rotated SMPL, the mesh at
+    5 mm with its first density chunk against the CPU), light_stage,
+    evaluate_nv on evaluate's renders, dataset and network; "run_nerf",
+    evaluate and vis_mesh over trainer_nerf's checkpoint.
 
 Each kernel (the hat contraction forward and backward, each with its cell
 lookup and with its scan; the gather-fused sparse conv on the tensor cores
@@ -189,7 +200,7 @@ CONFIG_G = 8         # config_path: steps a dispatch, as in production
 CONFIG_WORKERS = 2   # its loader workers (one pool for both epochs)
 CONFIG_WARM = 2      # dispatches of its warm epoch (the capture)
 CONFIG_TIMED = 4     # dispatches of its timed epoch
-CONFIG_READ_ROUNDS = 4    # its rounds of epochs read every dispatch / once
+CONFIG_READ_ROUNDS = 2    # its rounds of epochs read every dispatch / once
 CONFIG_HOST_BATCHES = 8   # batches whose host parts it times
 CONFIG_H2D_MAX = 10e6     # bytes a banked dispatch may copy to the card
 FRESH_DISPATCHES = 12     # the bench's fresh half: its timed dispatches
@@ -200,6 +211,21 @@ TRAINER_VERTS = 6890      # ratio 0.5 gives 512^2), SMPL's vertex count
 TRAINER_DISPATCHES = 2    # dispatches of each of fit's two epochs
 TRAINER_TIMED = 4         # dispatches of each timed Trainer epoch
 NERF_STEPS = 8            # trainer_nerf: its epoch of eager steps
+QUALITY_EPOCHS = 2        # quality_short: epochs of 250 steps (G = 8, f32)
+QUALITY_MIN_PSNR = 19.0   # its held-out PSNR after them (the JAX package's
+# TPU run read 21.29 dB at step 500, QUALITY_r05.json)
+EVAL_VS_VALIDATE = 1e-6   # run.py evaluate against Trainer.validate (dB;
+# the same renders of the same state)
+NV_VS_EVALUATE = 0.5      # evaluate_nv on evaluate's saved renders (dB:
+# 8-bit JPEGs of the float renders)
+VIEWS = 4                 # run_entry: vis_novel_view's views (of 50),
+PERFORM_FRAMES = 2        # vis_novel_pose's frames,
+ROTATE_INTERVAL = 28      # vis_rotate_smpl's FrameSampler interval (rows of
+# 5 training views: indices 0-4 of 144)
+DATASET_BATCHES = 16      # the dataset runner's epoch
+NERF_MESH_TH = 1.0        # run_nerf: the iso of an 8-step NeRF, whose
+# densities sit near the raised alpha bias (the YAML's 5 is for a trained
+# body)
 PRODUCT_KERNEL = re.compile(r"gemm|gemv|splitkreduce", re.IGNORECASE)
 HOST_TOP = 15    # host operations listed by host_profile
 MM_REPLACES = "tools/probes/pallas_enc_interp.py:22"
@@ -1035,6 +1061,386 @@ def trainer_nerf(torch, dev, card, root, out, failed, opts=()):
     finally:
         trainer.close()
     return fit_counts, val_counts
+
+
+def quality_short(torch, dev, card, work, failed):
+    """The port's first trained model, cut short: the convergence tool's
+    entry (tools/convergence_run.main) at full width for QUALITY_EPOCHS
+    epochs of 250 steps (f32, G = 8, two loader workers, the shaded
+    fixture at 512^2: 5 training views, 1 held out, 6 frames) with an eval
+    after each; the held-out PSNR after the last must reach
+    QUALITY_MIN_PSNR. Then tools/novel_pose_eval.main from its checkpoint
+    on the two unseen poses: finite PSNR, SSIM in [0, 1]. Returns the
+    convergence run's workdir and the launches of its training."""
+    import shutil
+
+    from neuralbody_tpu_torch.tools import convergence_run, novel_pose_eval
+    shutil.rmtree(work, ignore_errors=True)
+    conv = os.path.join(work, "convergence")
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    out = convergence_run.main([
+        "--epochs", str(QUALITY_EPOCHS), "--eval-every", "1",
+        "--workdir", conv, "--out", os.path.join(work, "quality.json")])
+    sync(torch, dev)
+    conv_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "QUALITY_r05.json")) as f:
+        jax_psnr = {c["step"]: c["psnr"] for c in json.load(f)["curve"]}
+    t0 = time.perf_counter()
+    pose = novel_pose_eval.main([
+        "--train-workdir", conv, "--workdir", os.path.join(work, "novel"),
+        "--out", os.path.join(work, "novelpose.json")])
+    pose_s = time.perf_counter() - t0
+    last = out["curve"][-1]
+    emit(phase="quality_short", epochs=out["epochs"], steps=out["steps"],
+         curve=out["curve"], jax_tpu_psnr_at=[
+             jax_psnr.get(c["step"]) for c in out["curve"]],
+         min_psnr=QUALITY_MIN_PSNR, train_s=out["train_s"],
+         train_rays_per_s=out["train_rays_per_s"], tool_s=conv_s,
+         launches=counts, novel_pose=pose, novel_pose_s=pose_s, card=card)
+    if (out["epochs"] != QUALITY_EPOCHS or len(out["curve"]) !=
+            QUALITY_EPOCHS or not math.isfinite(last["psnr"])
+            or not last["psnr"] >= QUALITY_MIN_PSNR
+            or not 0 <= last["ssim"] <= 1
+            or not math.isfinite(pose["value"])
+            or not 0 <= pose["ssim"] <= 1
+            or not all(counts[k] > 0 for k in
+                       ("hat_fwd", "hat_bwd", "conv", "conv_dx"))):
+        failed.append(f"quality_short: curve {out['curve']} (at least "
+                      f"{QUALITY_MIN_PSNR} dB), novel pose {pose}, "
+                      f"launches {counts}")
+    return conv, counts
+
+
+def link_checkpoint(cwd, cfg, trained):
+    """Make cfg.trained_model_dir (relative: data/trained_model/<task>/
+    <exp_name>, where run.py looks) under `cwd` point at `trained`."""
+    link = os.path.join(cwd, cfg.trained_model_dir)
+    os.makedirs(os.path.dirname(link), exist_ok=True)
+    if not os.path.islink(link):
+        os.symlink(trained, link)
+
+
+def changed_files(root, before):
+    """The files under `root` new or rewritten since `before` (a dict of
+    path -> mtime), and the new snapshot."""
+    now = {os.path.join(d, f): os.stat(os.path.join(d, f)).st_mtime_ns
+           for d, _, fs in os.walk(root) for f in fs}
+    return sorted(p for p, t in now.items() if before.get(p) != t), now
+
+
+def run_entry(torch, dev, card, work, conv, failed):
+    """Every runner of neuralbody_tpu_torch/run.py over quality_short's
+    checkpoint (`conv`: its workdir): evaluate (run_evaluate on the
+    convergence config, perturb off) against Trainer.validate on the same
+    state within EVAL_VS_VALIDATE dB; then, as a user calls it (run.main
+    with the 313 YAML cut to the fixture, in a working directory whose
+    data/trained_model links to the checkpoint), visualize in each mode
+    (vis_novel_view: VIEWS of 50 views; vis_novel_pose: PERFORM_FRAMES
+    frames; vis_rotate_smpl: the first row of 5 (one per training view) of
+    the 144 indices in FrameSampler rows; vis_mesh: one frame at 5 mm,
+    its first density chunk against the CPU at RENDER_TOL), light_stage on
+    a sphere written with save_ply, evaluate_nv on evaluate's saved
+    renders, dataset (DATASET_BATCHES batches) and network. Returns the
+    launches of evaluate and of the mesh."""
+    import shutil
+    from contextlib import chdir
+
+    import cv2
+    import numpy as np
+
+    from neuralbody_tpu_torch import run
+    from neuralbody_tpu_torch.datasets.loader import make_data_loader
+    from neuralbody_tpu_torch.datasets.samplers import frame_sampler_indices
+    from neuralbody_tpu_torch.renderer import mesh as mesh_mod
+    from neuralbody_tpu_torch.renderer.renderer import render_density_grid
+    from neuralbody_tpu_torch.tools import convergence_run
+    from neuralbody_tpu_torch.train import step as step_mod
+    from neuralbody_tpu_torch.train.fresh import CONFIG_313
+    from neuralbody_tpu_torch.train.trainer import Trainer
+    from neuralbody_tpu_torch.utils.mesh_io import load_ply, save_ply
+    from neuralbody_tpu_torch.utils.platform import to_device
+    cfg = convergence_run.run_cfg(conv)
+    root = cfg.train_dataset.data_root
+
+    # evaluate against Trainer.validate on the trained state
+    trainer = Trainer(cfg, device=dev)
+    try:
+        trainer.resume()
+        t0 = time.perf_counter()
+        val = trainer.validate()
+        sync(torch, dev)
+        val_s = time.perf_counter() - t0
+    finally:
+        trainer.close()
+    ecfg = cfg.clone()
+    ecfg.perturb = 0
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    summary = run.run_evaluate(ecfg, dev)
+    sync(torch, dev)
+    eval_s = time.perf_counter() - t0
+    eval_counts = kernel_counts()
+    images = len(make_data_loader(cfg, "test",
+                                  dataset=trainer.test_dataset))
+    diff = {k: abs(summary[k] - val[k]) for k in ("psnr", "ssim")}
+    emit(phase="run_evaluate", summary=summary, validate=val, diff=diff,
+         tol=EVAL_VS_VALIDATE, images=images,
+         ms_per_image=1e3 * eval_s / images,
+         validate_ms_per_image=1e3 * val_s / images, launches=eval_counts,
+         card=card)
+    if (not math.isfinite(summary["psnr"]) or not 0 <= summary["ssim"] <= 1
+            or not max(diff.values()) <= EVAL_VS_VALIDATE
+            or not eval_counts["conv"] > 0):
+        failed.append(f"run_evaluate: {summary} against validate {val}, "
+                      f"launches {eval_counts}")
+
+    # the runners as a user calls them, from a working directory
+    cwd = os.path.join(work, "cwd")
+    shutil.rmtree(cwd, ignore_errors=True)
+    os.makedirs(cwd)
+    data = []
+    for split in ("train", "test"):
+        data += [f"{split}_dataset.data_root", root,
+                 f"{split}_dataset.human", "CoreView_999",
+                 f"{split}_dataset.ann_file", f"{root}/annots.npy"]
+    # the 313 YAML with the convergence config's sizes and data
+    keys = ("exp_name", "H", "W", "ratio", "num_train_frame",
+            "training_view", "N_rand", "N_samples", "voxel_size", "nv",
+            "tpu.chunk_rays", "test.frame_sampler_interval")
+    common = ["--cfg_file", CONFIG_313, *data, *(
+        x for k in keys for x in (k, str(cfg.get_path(k))))]
+    link_checkpoint(cwd, run.setup(["--type", "evaluate", *common])[0],
+                    os.path.join(conv, "trained"))
+    modes = {
+        "vis_novel_view": ["num_render_views", str(VIEWS)],
+        "vis_novel_pose": ["num_render_frame", str(PERFORM_FRAMES)],
+        "vis_rotate_smpl": ["test.sampler", "FrameSampler",
+                            "test.frame_sampler_interval",
+                            str(ROTATE_INTERVAL)],
+        "vis_mesh": ["test.frame_sampler_interval", "6"]}
+    mesh_rows, mesh_counts, finite = [], {}, []
+    extract, cubes = mesh_mod.extract_mesh, mesh_mod.marching_cubes
+    render = step_mod.eval_step
+
+    def checked(params, batch, settings, device=None):
+        ret = render(params, batch, settings, device=device)
+        finite.append(all(torch.isfinite(v).all().item()
+                          for v in ret.values()))
+        return ret
+
+    def timed_iso(*a):
+        t0 = time.perf_counter()
+        out = cubes(*a)
+        mesh_rows[-1]["iso_surface_ms"] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    def timed_extract(params, batch, meta, settings, mcfg, device=None):
+        mesh_rows.append({})
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        out = extract(params, batch, meta, settings, mcfg, device=device)
+        total = 1e3 * (time.perf_counter() - t0)
+        # the path's launches, before the comparison below adds its own
+        mesh_rows[-1]["launches"] = kernel_counts()
+        chunk = int(mcfg.tpu.mesh_pt_chunk)
+        first = dict(to_device(batch, "cpu"),
+                     pts=torch.from_numpy(batch["pts"][:, :chunk]))
+        with torch.no_grad():
+            card_a = render_density_grid(
+                params, to_device(first, dev), settings, pt_chunk=chunk)
+            cpu_a = render_density_grid(
+                to_device(params, "cpu"), first, settings, pt_chunk=chunk)
+        err = (card_a.cpu() - cpu_a).abs().max().item()
+        scale = max(1.0, cpu_a.abs().max().item())
+        inside = np.asarray(meta["inside"])
+        mesh_rows[-1].update(
+            grid_shape=list(inside.shape), inside_points=int(inside.sum()),
+            chunks=batch["pts"].shape[1] // chunk, chunk=chunk,
+            extract_ms=total,
+            density_ms=total - mesh_rows[-1]["iso_surface_ms"],
+            V=len(out["vertices"]), T=len(out["triangles"]),
+            first_chunk_err=err, first_chunk_scale=scale,
+            cube_finite=bool(np.isfinite(out["cube"]).all()))
+        return out
+
+    rows = {}
+    with chdir(cwd):
+        before = changed_files(cwd, {})[1]
+        for mode, extra in modes.items():
+            if mode == "vis_mesh":
+                mesh_mod.extract_mesh = timed_extract
+                mesh_mod.marching_cubes = timed_iso
+                reset_kernel_counts()
+            step_mod.eval_step = checked
+            finite.clear()
+            try:
+                t0 = time.perf_counter()
+                n = run.main(["--type", "visualize", *common, mode, "True",
+                              *extra])
+                sync(torch, dev)
+                s = time.perf_counter() - t0
+            finally:
+                mesh_mod.extract_mesh = extract
+                mesh_mod.marching_cubes = cubes
+                step_mod.eval_step = render
+            if mode == "vis_mesh" and mesh_rows:
+                mesh_counts = mesh_rows[0]["launches"]
+            files, before = changed_files(cwd, before)
+            pngs = [f for f in files if f.endswith(".png")]
+            shapes = {cv2.imread(f).shape for f in pngs}
+            rows[mode] = dict(items=n, files=len(files), pngs=len(pngs),
+                              png_shapes=sorted(shapes), renders=len(finite),
+                              renders_finite=all(finite), s=s,
+                              ms_per_item=1e3 * s / n)
+        plys = [f for f in files if f.endswith(".ply")]
+        v, f = load_ply(plys[0]) if plys else ((), None)
+        V, T = len(v), 0 if f is None else len(f)
+        rows["vis_mesh"].update(mesh=mesh_rows, ply_V=V, ply_T=T)
+
+        # light_stage on a sphere's point cloud
+        stage = os.path.join(work, "stage")
+        os.makedirs(os.path.join(stage, "pointcloud"), exist_ok=True)
+        pts = np.random.RandomState(SEED).randn(5000, 3)
+        save_ply(os.path.join(stage, "pointcloud", "000.ply"),
+                 0.5 * pts / np.linalg.norm(pts, axis=1, keepdims=True))
+        t0 = time.perf_counter()
+        npz = run.main(["--type", "light_stage", "--cfg_file", CONFIG_313,
+                        "train_dataset.data_root", stage])
+        occupied = [int(np.unpackbits(np.load(f)["compressed_occupancies"])
+                        .sum()) for f in npz]
+        rows["light_stage"] = dict(npz=len(npz), occupied=occupied,
+                                   s=time.perf_counter() - t0)
+
+        # evaluate_nv on the renders evaluate saved (comparison/frame
+        # {fi:04d}_view{vi:04d}.png -> frame_{fi}/pred_{vi + 1}.jpg)
+        pred = os.path.join(work, "nv_pred")
+        comp = os.path.join(ecfg.result_dir, "comparison")
+        n_pred = 0
+        for f in sorted(os.listdir(comp)):
+            if f.endswith("_gt.png"):
+                continue
+            fi, vi = (int(x) for x in re.findall(r"\d+", f))
+            os.makedirs(os.path.join(pred, f"frame_{fi}"), exist_ok=True)
+            cv2.imwrite(os.path.join(pred, f"frame_{fi}",
+                                     f"pred_{vi + 1}.jpg"),
+                        cv2.imread(os.path.join(comp, f)),
+                        [cv2.IMWRITE_JPEG_QUALITY, 100])
+            n_pred += 1
+        t0 = time.perf_counter()
+        nv = run.main(["--type", "evaluate_nv", *common,
+                       "pred_result_dir", pred])
+        rows["evaluate_nv"] = dict(preds=n_pred, summary=nv,
+                                   s=time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        batches = run.main(["--type", "dataset", *common, "ep_iter",
+                            str(DATASET_BATCHES)])
+        rows["dataset"] = dict(batches=batches, s=time.perf_counter() - t0)
+        times = run.main(["--type", "network", *common])
+        rows["network"] = dict(renders=len(times),
+                               ms=[1e3 * t for t in times])
+    emit(phase="run_entry", card=card, **rows)
+    m = mesh_rows[0] if mesh_rows else {}
+    want_pngs = {"vis_novel_view": VIEWS, "vis_novel_pose": PERFORM_FRAMES,
+                 "vis_rotate_smpl": len(frame_sampler_indices(
+                     144, len(cfg.training_view), ROTATE_INTERVAL))}
+    if (any(rows[k]["pngs"] != n or rows[k]["renders"] != n
+            or not rows[k]["renders_finite"]
+            or rows[k]["png_shapes"] != [(cfg.H, cfg.W, 3)]
+            for k, n in want_pngs.items())
+            or len(mesh_rows) != 1 or not m["V"] > 0 or not m["T"] > 0
+            or not m["cube_finite"] or (V, T) != (m["V"], m["T"])
+            or not m["first_chunk_err"] <= RENDER_TOL["f32"]
+            * m["first_chunk_scale"]
+            or not mesh_counts.get("conv", 0) > 0
+            or not occupied or not all(occupied)
+            or not abs(nv["psnr"] - summary["psnr"]) <= NV_VS_EVALUATE
+            or not 0 <= nv["ssim"] <= 1 or n_pred != images
+            or batches != DATASET_BATCHES or not times
+            or not all(t > 0 for t in times)):
+        failed.append(f"run_entry: {rows}")
+    return eval_counts, mesh_counts
+
+
+def run_nerf(torch, dev, card, root, out, work, failed):
+    """run.py over trainer_nerf's checkpoint (under `out`), so that the
+    dense kernel (#7) runs from the tool entry: evaluate on one image of
+    the test view and vis_mesh on one frame (the nerf_mesh network's
+    coarse trunk on the 5 mm grid, iso NERF_MESH_TH; the inside points'
+    density range is printed beside V and T). Returns the launches of
+    evaluate and of the mesh."""
+    import shutil
+    from contextlib import chdir
+
+    import numpy as np
+
+    from neuralbody_tpu_torch import run
+    from neuralbody_tpu_torch.renderer import mesh as mesh_mod
+    from neuralbody_tpu_torch.utils.mesh_io import load_ply
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "nerf", "nerf_313.yaml")
+    data = []
+    for split in ("train", "test"):
+        data += [f"{split}_dataset.data_root", root,
+                 f"{split}_dataset.human", os.path.basename(root),
+                 f"{split}_dataset.ann_file", f"{root}/annots.npy"]
+    common = ["--cfg_file", path, "exp_name", "smoke_nerf",
+              "training_view", "[0, 1, 2]", "test.frame_sampler_interval",
+              str(TRAINER_FRAMES), *data]
+    cwd = os.path.join(work, "cwd_nerf")
+    shutil.rmtree(cwd, ignore_errors=True)
+    os.makedirs(cwd)
+    link_checkpoint(cwd, run.setup(["--type", "evaluate", *common])[0],
+                    os.path.join(out, "trained_model_dir"))
+    counts, cube = {}, {}
+    iso = mesh_mod.marching_cubes
+
+    def recording_iso(grid, level):
+        inside = grid[grid != 0]
+        if inside.size:
+            cube.update(points=int(inside.size), min=float(inside.min()),
+                        median=float(np.median(inside)),
+                        max=float(inside.max()))
+        return iso(grid, level)
+
+    with chdir(cwd):
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        summary = run.main(["--type", "evaluate", *common])
+        sync(torch, dev)
+        eval_s = time.perf_counter() - t0
+        counts["evaluate"] = kernel_counts()
+        reset_kernel_counts()
+        mesh_mod.marching_cubes = recording_iso
+        try:
+            t0 = time.perf_counter()
+            n = run.main(["--type", "visualize", *common, "vis_mesh",
+                          "True", "mesh_th", str(NERF_MESH_TH)])
+            sync(torch, dev)
+            mesh_s = time.perf_counter() - t0
+        finally:
+            mesh_mod.marching_cubes = iso
+        counts["mesh"] = kernel_counts()
+        mesh_dir = os.path.join(run.setup([
+            "--type", "visualize", *common, "vis_mesh", "True"])[0]
+            .result_dir, "mesh")
+        plys = sorted(os.listdir(mesh_dir))
+        v, f = load_ply(os.path.join(mesh_dir, plys[0]))
+        V, T = len(v), 0 if f is None else len(f)
+    emit(phase="run_nerf", summary=summary, evaluate_s=eval_s,
+         mesh_frames=n, mesh_s=mesh_s, mesh_th=NERF_MESH_TH, V=V, T=T,
+         inside_density=cube,
+         launches=counts, card=card)
+    if (not math.isfinite(summary["psnr"]) or not 0 <= summary["ssim"] <= 1
+            or n != 1 or len(plys) != 1
+            or not counts["evaluate"]["dense"] > 0
+            or not counts["mesh"]["dense"] > 0):
+        failed.append(f"run_nerf: {summary}, {n} meshes ({plys}), V {V} "
+                      f"T {T}, launches {counts}")
+    return counts["evaluate"], counts["mesh"]
 
 
 def nerf_family(torch, dev, card, ebatch, rbatch):
@@ -2714,6 +3120,20 @@ def main():
     nerf_fit, nerf_val = trainer_nerf(torch, dev, card, root,
                                       os.path.join(harness, "nerf"), failed)
 
+    # -- 6d. the first trained model (the convergence tool cut to two
+    # epochs, the novel-pose tool), then every runner of run.py over its
+    # checkpoint and over trainer_nerf's ----------------------------------
+    torch.cuda.empty_cache()
+    quality = os.path.join(harness, "quality")
+    conv, quality_counts = quality_short(torch, dev, card, quality, failed)
+    torch.cuda.empty_cache()
+    eval_counts, mesh_counts = run_entry(torch, dev, card, quality, conv,
+                                         failed)
+    torch.cuda.empty_cache()
+    nerf_eval, nerf_mesh = run_nerf(torch, dev, card, root,
+                                    os.path.join(harness, "nerf"), harness,
+                                    failed)
+
     # -- 7. the kernels ---------------------------------------------------
     kernels = []
     for kind, kname, line in (("fwd", "hat_interp_level", 44),
@@ -2797,6 +3217,28 @@ def main():
             key = "n"
         k.update(trainer_fit_launches=None if key is None else fit[key],
                  trainer_validate_launches=None if key is None else val[key])
+    # the trained model's paths (f32; counted from 0 over each): the
+    # convergence tool's two epochs, run.py's evaluate and vis_mesh
+    # (latent_xyzc's, the NeRF baseline's on dense_mm's entry)
+    new_paths = {
+        "hat_interp_level[f32]": ("hat_fwd", quality_counts, eval_counts,
+                                  mesh_counts),
+        "hat_interp_level_bwd[f32]": ("hat_bwd", quality_counts,
+                                      eval_counts, mesh_counts),
+        "sparse_conv_dx[f32]": ("conv_dx", quality_counts, eval_counts,
+                                mesh_counts),
+        "dense_mm[f32]": ("dense", None, nerf_eval, nerf_mesh)}
+    for k in kernels:
+        row = new_paths.get(k["name"])
+        if k["name"] == "sparse_conv[f32]":
+            row = ("n",) + tuple(
+                {"n": c["conv"] - c["conv_dx"]}
+                for c in (quality_counts, eval_counts, mesh_counts))
+        key, quality_c, eval_c, mesh_c = row or (None,) * 4
+        k.update(quality_short_launches=(
+                     None if quality_c is None else quality_c[key]),
+                 run_evaluate_launches=None if key is None else eval_c[key],
+                 mesh_launches=None if key is None else mesh_c[key])
     if failed:
         raise AssertionError("; ".join(failed))
     print(json.dumps({"kernels": kernels}), flush=True)

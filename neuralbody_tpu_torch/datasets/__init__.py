@@ -1,7 +1,9 @@
 """Datasets (ZJU-MoCap multi-view, People-Snapshot monocular) and the
-batch loader with its spawned workers (counterpart of
+batch loader with its spawned workers, the demo datasets (orbit, novel
+pose, rotated SMPL, monocular) and the mesh datasets (counterpart of
 neuralbody_tpu/datasets/; numpy, host only)."""
-from . import zju_mocap, snapshot  # noqa: F401  (registers plugins)
+from . import (zju_mocap, snapshot, demo_datasets,  # noqa: F401
+               mesh_dataset)  # (registers plugins)
 from .loader import make_data_loader, make_dataset, collate
 
 __all__ = ["make_data_loader", "make_dataset", "collate"]

@@ -13,6 +13,7 @@ prepare_sp_input, if_clight_renderer.py:40, extended to the sequence).
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 
@@ -129,7 +130,11 @@ class GeometryCache:
                 fix_caps=getattr(self, "fix_caps", None))
             if path is not None:
                 os.makedirs(self.cache_dir, exist_ok=True)
-                tmp = path + ".tmp.npz"   # .npz suffix: savez keeps the name
+                # a name of this process and thread: the loader's workers
+                # and the parent may write one frame at once (with one
+                # shared name the JAX package's first os.replace takes the
+                # others' file away); .npz suffix: savez keeps the name
+                tmp = f"{path}.{os.getpid()}-{threading.get_ident()}.tmp.npz"
                 np.savez_compressed(tmp, **geom)
                 os.replace(tmp, path)
 

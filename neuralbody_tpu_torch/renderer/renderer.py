@@ -66,10 +66,13 @@ _ELEM_KEYS = ("ray_o", "ray_d", "near", "far", "Th", "bounds",
 def _pixel(uv, img_hw):
     """Nearest pixel of projected points, clipped into the image. Rounding
     is half-to-even as in JAX; the clip happens in float so a far-off point
-    lands on the border as it does after JAX's saturating int cast."""
+    lands on the border as it does after JAX's saturating int cast, and a
+    NaN (a point on the camera's plane: 0 / 0) goes to 0, as JAX casts it.
+    A padded ray of the monocular demo projects there."""
     H, W = img_hw
-    ui = torch.clamp(torch.round(uv[:, 0]), 0, W - 1).long()
-    vi = torch.clamp(torch.round(uv[:, 1]), 0, H - 1).long()
+    uv = torch.nan_to_num(torch.round(uv), nan=0.0)
+    ui = torch.clamp(uv[:, 0], 0, W - 1).long()
+    vi = torch.clamp(uv[:, 1], 0, H - 1).long()
     return ui, vi
 
 

@@ -5,7 +5,7 @@ CONFIG_TOL, tests/test_torch_graph_cuda.py, tests/test_torch_fresh_cuda.py),
 and the comparison those checks share. Needs an NVIDIA GPU.
 
     python -m neuralbody_tpu_torch.tools.graph_noise [--runs 20]
-        [--scenes full,small,config,fresh] [--graph-runs 10]
+        [--scenes full,small,config,fresh] [--graph-runs 10] [--ckpt DIR]
 
 Two sums on the hat path add floats in an order that changes from run to
 run (the hat backward's atomicAdd to device memory, index_add_ in
@@ -45,6 +45,12 @@ Scenes:
           dispatches of G = 8 distinct batches, bf16
   fresh   tests/test_torch_fresh_cuda.py's: its small loader, two
           dispatches of G = 2
+
+--ckpt DIR starts the full scene from the trained state in DIR's latest
+checkpoint (tools/convergence_run's <workdir>/trained: its params, BN
+stats and Adam state, its frame latents; alpha_fc's bias as trained) in
+place of the seeded one: the spread of trained weights. Only the full
+scene has the trained model's widths, so --ckpt takes no other scene.
 """
 from __future__ import annotations
 
@@ -228,7 +234,7 @@ def config_run(cfg, dataset, device, pool=None, bank=True):
 
 
 def _hat_scene(dev, mode, n_rays, n_verts, vox, n_samples, seed, schedule,
-               num_train_frame=1, alpha_bias=1.0):
+               ckpt=None):
     from ..models import latent_xyzc as lx
     from ..models.sparse_conv_net import EncoderStatic
     from ..renderer.renderer import RenderSettings
@@ -242,12 +248,25 @@ def _hat_scene(dev, mode, n_rays, n_verts, vox, n_samples, seed, schedule,
             compute_dtype=mode)),
         voxel_size=(vox,) * 3, hat_rows_caps=static["hat"]["rows_caps"])
 
+    n_frames = 1
+    if ckpt is not None:
+        from ..train.checkpoint import _pick, read_checkpoint
+        path = _pick(ckpt, -1)
+        if path is None:
+            raise SystemExit(f"no checkpoint under {ckpt}")
+        n_frames = len(read_checkpoint(path)["params"]["frame_latent"])
+
     def init():
         params, bn = lx.init(torch.Generator().manual_seed(0),
-                             num_train_frame=num_train_frame, nv=n_verts,
+                             num_train_frame=n_frames, nv=n_verts,
                              device=dev)
-        params["alpha_fc"]["b"] += alpha_bias
-        return params, bn, optimizer.build_optimizer(params, schedule())
+        opt = optimizer.build_optimizer(params, schedule())
+        if ckpt is None:
+            params["alpha_fc"]["b"] += ALPHA_BIAS
+        else:
+            from ..train.checkpoint import load_checkpoint
+            load_checkpoint(ckpt, params, bn, opt)
+        return params, bn, opt
     return (a, b), settings, init
 
 
@@ -269,10 +288,11 @@ def graph_run(dev, init, dispatches, settings):
     return run_state(params, bn, opt, torch.cat(losses))
 
 
-def scenes(dev, names, mode):
+def scenes(dev, names, mode, ckpt=None):
     """(name, settings, init, chains) per scene of `names`: init() gives a
-    run's seeded (params, bn_stats, opt); per chain its eager steps, its
-    dispatches and the dispatches of its stale-copy run (None: none)."""
+    run's seeded (params, bn_stats, opt), or the full scene's from the
+    checkpoint under `ckpt`; per chain its eager steps, its dispatches and
+    the dispatches of its stale-copy run (None: none)."""
     from ..train import optimizer
     from ..train.fresh import stack_batches
     if "full" in names:
@@ -281,7 +301,7 @@ def scenes(dev, names, mode):
                                               ep_iter=500, gamma=0.1,
                                               decay_epochs=1000)
         (a, b), st, init = _hat_scene(dev, mode, 1024, 6890, 0.005, 64, 0,
-                                      schedule)
+                                      schedule, ckpt)
         yield "full", st, init, [([a, a, b, b], [stack_batches([a, a]),
                                                  stack_batches([b, b])],
                                   [stack_batches([a, a])] * 2)]
@@ -317,7 +337,11 @@ def main(argv=None):
     ap.add_argument("--graph-runs", type=int, default=10)
     ap.add_argument("--scenes", default="full,small")
     ap.add_argument("--modes", default="bfloat16,float32")
+    ap.add_argument("--ckpt", default=None,
+                    help="start the full scene from this checkpoint dir")
     args = ap.parse_args(argv)
+    if args.ckpt is not None and args.scenes != "full":
+        raise SystemExit("--ckpt holds the full scene only: --scenes full")
     if not torch.cuda.is_available():
         raise SystemExit("graph_noise needs an NVIDIA GPU")
     from ..ops import conv_kernel, hat_kernel
@@ -333,7 +357,8 @@ def main(argv=None):
     for mode in args.modes.split(","):
         # the config path trains in bf16, as the bench and production do
         todo = [n for n in names if mode == "bfloat16" or n != "config"]
-        for name, settings, init, chains in scenes(dev, todo, mode):
+        for name, settings, init, chains in scenes(dev, todo, mode,
+                                                   args.ckpt):
             eager = [[eager_run(dev, init, steps, settings) for _ in
                       range(args.runs)] for steps, _, _ in chains]
             worst = {g: (0.0, "") for g in GROUPS}
@@ -363,7 +388,8 @@ def main(argv=None):
                     teeth, _ = check(graph_run(dev, init, stale, settings),
                                      runs[0], tol)
             print(json.dumps(dict(
-                scene=name, mode=mode, card=card, eager_runs=args.runs,
+                scene=name, mode=mode, card=card, ckpt=args.ckpt,
+                eager_runs=args.runs,
                 chains=[len(s) for s, _, _ in chains],
                 spread={g: dict(worst=d, path=p)
                         for g, (d, p) in worst.items()},

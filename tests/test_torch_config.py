@@ -21,12 +21,14 @@ import neuralbody_tpu.evaluators  # noqa: F401
 import neuralbody_tpu.models  # noqa: F401
 import neuralbody_tpu.renderer  # noqa: F401
 import neuralbody_tpu.train  # noqa: F401
+import neuralbody_tpu.visualizers  # noqa: F401
 from neuralbody_tpu import config as j_cfg
 import neuralbody_tpu_torch.datasets  # noqa: F401  (registers plugins)
 import neuralbody_tpu_torch.evaluators  # noqa: F401
 import neuralbody_tpu_torch.models  # noqa: F401
 import neuralbody_tpu_torch.renderer  # noqa: F401
 import neuralbody_tpu_torch.train  # noqa: F401
+import neuralbody_tpu_torch.visualizers  # noqa: F401
 from neuralbody_tpu_torch import config as t_cfg
 from neuralbody_tpu_torch.renderer.renderer import RenderSettings
 from neuralbody_tpu_torch.renderer.volume_renderer import NerfRenderSettings
@@ -130,8 +132,8 @@ class TestRegistry:
     @pytest.mark.parametrize("kind,name", [
         ("network", "tpose_xyzc"), ("model_static", "tpose_xyzc"),
         ("renderer", "tpose_renderer"),
-        ("visualizer", "if_nerf"), ("dataset", "tpose"),
-        ("dataset", "multi_view_demo"), ("dataset", "multi_view_mesh"),
+        ("visualizer", "nope"), ("dataset", "tpose"),
+        ("dataset", "nope"), ("evaluator", "nope"),
         ("thing", "nope")])
     def test_unregistered_names_raise(self, kind, name):
         with pytest.raises(KeyError):
@@ -144,8 +146,13 @@ class TestRegistry:
                              "if_clight_renderer_msk", "if_mesh_renderer",
                              "volume_mesh_renderer", "volume_renderer"],
                 "trainer": ["if_nerf_clight", "nerf", "tpose"],
-                "dataset": ["monocular", "multi_view"],
-                "evaluator": ["if_nerf", "if_nerf_mesh", "neural_volume"]}
+                "dataset": ["monocular", "monocular_demo", "monocular_mesh",
+                            "multi_view", "multi_view_demo",
+                            "multi_view_mesh", "multi_view_perform",
+                            "rotate_smpl"],
+                "evaluator": ["if_nerf", "if_nerf_mesh", "neural_volume"],
+                "visualizer": ["if_nerf", "if_nerf_demo", "if_nerf_mesh",
+                               "if_nerf_perform", "if_nerf_test"]}
         for kind, names in want.items():
             assert t_cfg.registered(kind) == names, kind
             for n in names:

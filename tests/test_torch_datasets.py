@@ -206,6 +206,49 @@ def test_frame_data_equal_jax():
                     caches[1].frame(key, wxyz, rh, th), f"frame {key}")
 
 
+def test_cache_writers_of_one_frame_do_not_collide(tmp_path, monkeypatch):
+    """Two writers of one frame's cache file at once (a loader worker and
+    the parent do this): each writes its own temporary file, and both
+    publish it (with one shared temporary name, the first os.replace took
+    the second writer's file away and it raised FileNotFoundError)."""
+    import os
+    import threading
+    xyz = j_syn.ellipsoid_vertices(N_VERTS, seed=4)
+    Rh, Th = np.array([0.1, 0.3, -0.2]), np.array([[0.05, 0.0, 0.1]])
+    both_written = threading.Barrier(2)
+    save = np.savez_compressed
+
+    def save_then_wait(path, **arrays):
+        save(path, **arrays)
+        both_written.wait(timeout=60)
+
+    monkeypatch.setattr(np, "savez_compressed", save_then_wait)
+    caches = [t_fd.GeometryCache((0.02,) * 3, cache_dir=str(tmp_path))
+              for _ in range(2)]
+    for c in caches:
+        c.finalize_static([(0, xyz, Rh, Th)])
+    errors = []
+
+    def write(cache):
+        try:
+            cache.frame(0, xyz, Rh, Th)
+        except Exception as e:  # noqa: BLE001 -- asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=write, args=(c,)) for c in caches]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    assert len(os.listdir(tmp_path)) == 1
+    # the published file is a whole one: a new cache reads it back
+    fresh = t_fd.GeometryCache((0.02,) * 3, cache_dir=str(tmp_path))
+    fresh.finalize_static([(0, xyz, Rh, Th)])
+    assert_same(fresh.frame(0, xyz, Rh, Th)["geom"],
+                caches[0].frame(0, xyz, Rh, Th)["geom"])
+
+
 def test_synthetic_dataset_equals_jax():
     kw = dict(n_frames=2, n_cams=3, hw=(64, 64), n_verts=N_VERTS,
               voxel_size=0.02, n_rand=64, seed=2)
