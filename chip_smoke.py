@@ -71,10 +71,21 @@ through their entry points:
     vis_* modes (orbit views, playback frames, rotated SMPL, the mesh at
     5 mm with its first density chunk against the CPU), light_stage,
     evaluate_nv on evaluate's renders, dataset and network; "run_nerf",
-    evaluate and vis_mesh over trainer_nerf's checkpoint.
+    evaluate and vis_mesh over trainer_nerf's checkpoint;
+  * "graph_vs_eager_trained": graphed bf16 steps from quality_short's
+    checkpoint against eager ones at TRAINED_TOL (the trained state
+    spreads eager bf16 runs wider than seeded weights), a stale copy and a
+    negated mu leaf over it;
+  * the T-pose variant (configs/tpose/tpose_313.yaml, f32, eager) over the
+    harness's sequence with warping from a posed synthetic SMPL model:
+    "tpose_kernel", the conv kernel against its plain version at the
+    T-pose encoder's 17 layer shapes, forward and dx; "tpose_render", the
+    1024-ray render against the port's CPU render; "tpose_train", the
+    first step's gradients against the CPU's, an eager step timed and its
+    parts timed apart, Trainer fit and validate.
 
-Each kernel (the hat contraction forward and backward, each with its cell
-lookup and with its scan; the gather-fused sparse conv on the tensor cores
+Each kernel (the hat contraction forward, with its cell lookup and with
+its scan, and backward, its sums in one fixed order; the gather-fused sparse conv on the tensor cores
 in all 17 layers of the encoder, forward and dx, timed beside the conv
 weight gradient; and the dense layer in every layer of the NeRF MLPs: the product forward, dx and dW on its tensor-core, narrow and FMA
 routes, and `linear` with the bias and the ReLU in the epilogue, forward
@@ -226,6 +237,21 @@ DATASET_BATCHES = 16      # the dataset runner's epoch
 NERF_MESH_TH = 1.0        # run_nerf: the iso of an 8-step NeRF, whose
 # densities sit near the raised alpha bias (the YAML's 5 is for a trained
 # body)
+# TRAINED_TOL: graph_vs_eager_trained's four bf16 steps ("full" scene)
+# from quality_short's checkpoint (500 steps). A trained state spread the
+# eager bf16 runs of the atomic hat backward far wider than seeded weights
+# did (PERF.md section 2): 4x the largest spread of seven calls of
+# tools/graph_noise.py --ckpt from 19,000-, 18,500- and 500-step
+# checkpoints (an H100 80GB HBM3 at 700 W).
+TRAINED_TOL = {"params": 2.13e-3, "mu": 7.75e-2, "nu": 5.15e-2,
+               "bn": 1.72e-3, "loss": 1.14e-3}
+TRAINED_GRAPH_RUNS = 2    # graphed runs held against the one eager run
+TPOSE_CONFIG = "configs/tpose/tpose_313.yaml"
+TPOSE_VSIZE = 0.02        # the posed warping grid's voxel (the YAML's)
+TPOSE_POSE_STD = 0.02     # the synthetic SMPL poses of its frames (radians;
+# 0.2 swelled the posed grid to 591k points)
+TPOSE_DISPATCHES = 2      # dispatches of each of its fit's two epochs
+TPOSE_STEP_RUNS = 5       # timed eager steps on one batch
 PRODUCT_KERNEL = re.compile(r"gemm|gemv|splitkreduce", re.IGNORECASE)
 HOST_TOP = 15    # host operations listed by host_profile
 MM_REPLACES = "tools/probes/pallas_enc_interp.py:22"
@@ -1443,6 +1469,496 @@ def run_nerf(torch, dev, card, root, out, work, failed):
     return counts["evaluate"], counts["mesh"]
 
 
+def graph_vs_eager_trained(torch, dev, card, conv, failed):
+    """Graphed bf16 steps from a trained state against eager ones: the
+    "full" scene of tools/graph_noise.py (1024 rays x 64 samples, batches
+    A then B, two replays of a two-step StepGraph) started from
+    quality_short's checkpoint under `conv` (its params, BN stats and Adam
+    state), held by graph_noise.check at TRAINED_TOL. TRAINED_GRAPH_RUNS
+    correct graphed runs must pass; a stale copy (the second replay fed A)
+    and mu's largest leaf negated must each read over 1; the ratio of
+    params' largest leaf left at its trained value is reported."""
+    from neuralbody_tpu_torch.tools import graph_noise
+    ckpt = os.path.join(conv, "trained")
+    t0 = time.perf_counter()
+    ((_, settings, init, chains),) = graph_noise.scenes(
+        dev, ["full"], "bfloat16", ckpt)
+    steps, disp, stale = chains[0]
+    eager = graph_noise.eager_run(dev, init, steps, settings)
+    worst, over_all, state = {}, [], None
+    for _ in range(TRAINED_GRAPH_RUNS):
+        state = graph_noise.graph_run(dev, init, disp, settings)
+        groups, over = graph_noise.check(state, eager, TRAINED_TOL)
+        over_all += over
+        for g, v in groups.items():
+            worst[g] = max(worst.get(g, 0.0), v["ratio"])
+    teeth, _ = graph_noise.check(graph_noise.graph_run(dev, init, stale,
+                                                       settings),
+                                 eager, TRAINED_TOL)
+    stale_ratio = max(v["ratio"] for v in teeth.values())
+    p0, bn0, opt0 = init()
+    before = graph_noise.run_state(p0, bn0, opt0, [])
+    del p0, bn0, opt0
+    faults = {}
+    for what, (g, path, bad) in graph_noise.mutations(state,
+                                                      before).items():
+        ratios, _ = graph_noise.check(bad, eager, TRAINED_TOL)
+        faults[what] = dict(
+            groups={k: v["ratio"] for k, v in ratios.items()}, leaf=path,
+            leaf_ratio=graph_noise.ratio(dict(graph_noise.distances(
+                bad, eager)[g])[path], TRAINED_TOL[g]))
+    emit(phase="graph_vs_eager_trained", checkpoint=ckpt, mode="bf16",
+         steps=len(steps), graph_runs=TRAINED_GRAPH_RUNS, tol=TRAINED_TOL,
+         graph_worst_ratio=worst, over=over_all[:8],
+         stale_copy=teeth, stale_copy_worst_ratio=stale_ratio,
+         mutations=faults, seconds=time.perf_counter() - t0, card=card)
+    if over_all:
+        failed.append(f"graph_vs_eager_trained: graphed leaves over "
+                      f"TRAINED_TOL {over_all[:8]}")
+    if not stale_ratio > 1:
+        failed.append(f"graph_vs_eager_trained: a stale copy within "
+                      f"TRAINED_TOL (worst ratio {stale_ratio})")
+    if not faults["mu"]["groups"]["mu"] > 1:
+        failed.append(f"graph_vs_eager_trained: mu's largest leaf negated "
+                      f"within TRAINED_TOL ({faults['mu']})")
+
+
+def encoder_leaf(path):
+    """Whether a leaves() path is the encoder's (its convs, BatchNorms and
+    the vertex codes)."""
+    return path.startswith(("xyzc_net", "vertex_code"))
+
+
+class kept_volumes:
+    """Within the block, the T-pose encoder's output volumes keep their
+    gradient (retain_grad): `with kept_volumes(tpose_xyzc) as vols:` gives
+    the list they are appended to."""
+
+    def __init__(self, tpose_xyzc):
+        self.mod, self.vols = tpose_xyzc, []
+
+    def __enter__(self):
+        self.encode = self.mod.encode_tpose_voxels
+
+        def encode(*args):
+            volumes, stats = self.encode(*args)
+            for v in volumes:
+                v.retain_grad()
+            self.vols.extend(volumes)
+            return volumes, stats
+        self.mod.encode_tpose_voxels = encode
+        return self.vols
+
+    def __exit__(self, *exc):
+        self.mod.encode_tpose_voxels = self.encode
+
+
+def tpose_family(torch, dev, card, root, out, failed):
+    """The T-pose variant at full width (f32 always, eager), over the fake
+    ZJU sequence at `root` (TRAINER_FRAMES frames of TRAINER_VERTS
+    vertices, 1024^2 images that the config's ratio halves) with warping
+    from tools/prepare_warping.write_synthetic_warping (make_synthetic_model
+    of TRAINER_VERTS vertices, posed by N(0, TPOSE_POSE_STD) poses; a grid
+    at TPOSE_VSIZE), the 313 T-pose YAML (5 mm T-pose voxels, 1024 rays x
+    64 samples):
+      "tpose_kernel": the conv kernel against its plain version at the
+        T-pose encoder's 17 layer shapes, forward (a render's) and dx (a
+        training step's), at CONV_TOL of scale, timed per encode beside its
+        plain version, the library yardstick, its bound and the conv
+        weight gradient;
+      "tpose_render": eval_step of a training batch on the card against
+        the port's CPU render of the same batch and weights, at
+        RENDER_TOL["f32"] of scale;
+      "tpose_train": the first step's gradients on the card against the
+        CPU's (GRAD_TOL["f32"]): the loss, the decoder's leaves and the
+        cotangent at the encoder's output volumes (through the decode and
+        both samples) at 1e-3; the encoder's leaves at the encoder's L2
+        rule, 2e-2, from the card's step with the plain conv (with the
+        kernel they read ~2.6e-2: this random-weight encoder magnifies the
+        kernel's tf32x3 arithmetic, within 1e-5 of each layer's scale, that
+        much; reported beside), an eager step timed on
+        one batch, the step's parts timed apart (the profile by
+        operation), then Trainer fit (two epochs of TPOSE_DISPATCHES
+        dispatches, the loader's thread) and validate().
+    Returns the conv kernel's numbers on this path for the kernels line."""
+    import shutil
+
+    from neuralbody_tpu_torch.config import build
+    from neuralbody_tpu_torch.datasets.loader import (make_data_loader,
+                                                      make_dataset)
+    from neuralbody_tpu_torch.models import tpose_xyzc
+    from neuralbody_tpu_torch.ops import conv_kernel, sparse_conv
+    from neuralbody_tpu_torch.tools.prepare_warping import \
+        write_synthetic_warping
+    from neuralbody_tpu_torch.train import optimizer
+    from neuralbody_tpu_torch.train.step import (eval_step, loss_and_grads,
+                                                 train_step)
+    from neuralbody_tpu_torch.train.trainer import Trainer
+    from neuralbody_tpu_torch.utils.platform import to_device
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_synthetic_warping(root, TRAINER_FRAMES, n_verts=TRAINER_VERTS,
+                            ptot_vsize=TPOSE_VSIZE, pose_std=TPOSE_POSE_STD,
+                            seed=SEED, device=dev)
+    warp_s = time.perf_counter() - t0
+    G = 8
+    cfg = trainer_cfg(TPOSE_CONFIG, root, out, [
+        "num_train_frame", str(TRAINER_FRAMES),
+        "tpu.steps_per_dispatch", str(G), "train.num_workers", "0",
+        "ep_iter", str(TPOSE_DISPATCHES * G), "train.epoch", "2",
+        "save_ep", "1", "save_latest_ep", "1", "eval_ep", "100",
+        "exp_name", "smoke_tpose"])
+    t0 = time.perf_counter()
+    ds = make_dataset(cfg, "train")
+    static = build("model_static", cfg.network_module, cfg, ds)
+    settings = build("renderer", cfg.renderer_module, cfg, static)
+    batch, _ = next(iter(make_data_loader(cfg, "train", dataset=ds)))
+    data_s = time.perf_counter() - t0
+    init_fn, _ = build("network", cfg.network_module, cfg)
+
+    def fresh(device=dev):
+        params, bn = init_fn(torch.Generator().manual_seed(SEED),
+                             device=device)
+        with torch.no_grad():
+            params["alpha_fc"]["b"] += ALPHA_BIAS
+        return params, bn
+
+    params, _ = fresh()
+    batch_dev = to_device(batch, dev)
+    n_rays = batch["ray_o"].shape[1]
+    emit(phase="tpose_data", config=TPOSE_CONFIG, warping_s=warp_s,
+         data_s=data_s, out_sh=list(static.encoder.out_sh),
+         site_caps=list(static.encoder.site_caps),
+         ptot_shape=list(static.ptot_shape),
+         warp_points=math.prod(static.ptot_shape), rays=n_rays,
+         samples=settings.n_samples, compute_dtype=cfg.tpu.compute_dtype,
+         encoder_dtype=static.encoder.compute_dtype, card=card)
+    if static.encoder.compute_dtype != "float32":
+        failed.append(f"tpose: the encoder runs in "
+                      f"{static.encoder.compute_dtype}, not f32")
+
+    # -- tpose_kernel: every conv a render and a training step hand the
+    # wrapper, against the plain version
+    conv_launch, calls = sparse_conv.sparse_conv, []
+
+    def recorder(T, idx, W, dx=False):
+        calls.append((T, idx, W))
+        return conv_launch(T, idx, W, dx=dx)
+
+    sparse_conv.sparse_conv = recorder
+    try:
+        reset_kernel_counts()
+        ret = eval_step(params, batch_dev, settings, device=dev)
+        render_counts = kernel_counts("conv", "conv_dx")
+        fwd = list(calls)
+        calls.clear()
+        p0, _ = fresh()
+        with kept_volumes(tpose_xyzc) as card_vols:
+            card_step = loss_and_grads(p0, batch_dev, settings)
+        step_fwd, dx = calls[:CONV_LAYERS], calls[CONV_LAYERS:]
+        n_step = len(calls)
+    finally:
+        sparse_conv.sparse_conv = conv_launch
+    calls.clear()
+    torch.cuda.synchronize()
+    if (len(fwd) != CONV_LAYERS or n_step != 2 * CONV_LAYERS
+            or render_counts != (CONV_LAYERS, 0)):
+        raise AssertionError(f"tpose: {len(fwd)} render convs and {n_step} "
+                             f"step convs, counters {render_counts}")
+    conv = {}
+    for kind, layers in (("fwd", fwd), ("dx", dx)):
+        tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   bound_ms=0.0, weight_grad_ms=0.0)
+        by = {"bytes": 0.0, "operations": 0.0}
+        shapes = []
+        for layer, (T, idx, W) in enumerate(layers):
+            if T.dtype != torch.float32:
+                raise AssertionError(f"tpose {kind} {layer}: {T.dtype}")
+            out_k = conv_kernel.sparse_conv(T, idx, W)
+            ref = conv_kernel.sparse_conv_plain(T, idx, W)
+            torch.cuda.synchronize()
+            err = (out_k - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            if not (scale > 0 and err <= CONV_TOL * scale):
+                raise AssertionError(f"tpose conv kernel {kind} layer "
+                                     f"{layer}: err {err} at scale {scale}")
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            bound = conv_bound(torch, T, idx, W, "f32")
+            by[bound["bound_by"]] += bound["bound_ms"]
+            tot["bound_ms"] += bound["bound_ms"]
+            tot["ms"] += median_ms(torch, lambda: conv_kernel.sparse_conv(
+                T, idx, W), runs=10)
+            tot["plain_ms"] += median_ms(
+                torch, lambda: conv_kernel.sparse_conv_plain(T, idx, W),
+                runs=5)
+            tot["library_ms"] += median_ms(
+                torch, lambda: library_conv(torch, T, idx, W), runs=5)
+            if kind == "dx":
+                Tf, idx_f, _ = step_fwd[CONV_LAYERS - 1 - layer]
+                S_in = idx.shape[-1]
+                x = (Tf if idx_f.shape[-2] == 27 else
+                     Tf[..., :S_in, Tf.shape[-1] // 3:
+                        2 * Tf.shape[-1] // 3])
+                tot["weight_grad_ms"] += median_ms(
+                    torch, lambda: sparse_conv._weight_grad(
+                        x, conv_kernel.gather_rows(T, idx)), runs=5)
+            shapes.append(dict(n_rows=T.shape[-2], E=T.shape[-1],
+                               K=idx.shape[-2], S=idx.shape[-1],
+                               Cout=W.shape[2], max_abs_err=err,
+                               max_rel_err=err / scale))
+        tot["bound_by"] = max(by, key=by.get)
+        if kind == "fwd":
+            del tot["weight_grad_ms"]
+        conv[kind] = tot
+        emit(phase="tpose_kernel", direction=kind, mode="f32", layers=shapes,
+             tol_rel=CONV_TOL, card=card, **tot)
+    del fwd, dx, step_fwd
+
+    # -- tpose_render: the card against the CPU, one training batch
+    t0 = time.perf_counter()
+    ref = eval_step(to_device(params, "cpu"), batch, settings, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    render_ms = median_ms(torch, lambda: eval_step(params, batch_dev,
+                                                   settings, device=dev),
+                          runs=5, warmup=1)
+    errs = {}
+    for k in ("rgb_map", "acc_map", "depth_map"):
+        errs[k] = (ret[k].cpu() - ref[k]).abs().max().item()
+        scale = max(1.0, ref[k].abs().max().item())
+        if not errs[k] <= RENDER_TOL["f32"] * scale:
+            raise AssertionError(f"tpose render vs the CPU {k}: err "
+                                 f"{errs[k]} (scale {scale})")
+    emit(phase="tpose_render", rays=n_rays, max_abs_err=errs,
+         tol_rel=RENDER_TOL["f32"], mean_acc=ret["acc_map"].mean().item(),
+         render_ms=render_ms, conv_launches=render_counts[0],
+         cpu_render_s=cpu_s, card=card)
+    if not ret["acc_map"].mean().item() > 0:
+        failed.append("tpose render: every ray empty")
+
+    # -- tpose_train: the first step's gradients against the CPU's
+    t0 = time.perf_counter()
+    p_cpu, _ = fresh("cpu")
+    batch_cpu = to_device(batch, "cpu")
+    with kept_volumes(tpose_xyzc) as cpu_vols:
+        cpu_loss, _, cpu_grads = loss_and_grads(p_cpu, batch_cpu, settings)
+    cpu_s = time.perf_counter() - t0
+    loss, _, grads = card_step
+
+    def l2_errors(a, b):
+        out = {}
+        for (path, g), (_, c) in zip(leaves(a), leaves(b)):
+            g, c = g.float().cpu(), c.float().cpu()
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"tpose gradient {path} not finite")
+            out[path] = (g - c).norm().item() / max(c.norm().item(),
+                                                    GRAD_FLOOR)
+        return out
+
+    l2 = l2_errors(grads, cpu_grads)
+    # the conditioning: the card's step run again, and the CPU step with
+    # the vertex codes one f32 ulp apart
+    _, _, again = loss_and_grads(fresh()[0], batch_dev, settings)
+    with torch.no_grad():
+        p_cpu["vertex_code"].mul_(1.0 + 2.0 ** -23)
+    _, _, ulp = loss_and_grads(p_cpu, batch_cpu, settings)
+    run_to_run, one_ulp = l2_errors(again, grads), l2_errors(ulp, cpu_grads)
+    emit(phase="tpose_grads_per_leaf", card_vs_cpu=l2,
+         card_run_to_run=run_to_run, cpu_one_ulp=one_ulp)
+    del again, ulp
+    # the cotangent at the encoder's output (the T-pose volumes), through
+    # the decode, the ray sample and the warp
+    vol_l2 = [((a.grad.cpu() - b.grad).norm() / b.grad.norm()).item()
+              for a, b in zip(card_vols, cpu_vols)]
+    # the card's step with the plain conv in place of the kernel: the
+    # encoder's leaves against the CPU's without the kernel's arithmetic,
+    # which tpose_kernel holds layer by layer
+    sparse_conv.sparse_conv = (lambda T, idx, W, dx=False:
+                               conv_kernel.sparse_conv_plain(T, idx, W))
+    try:
+        _, _, plain_grads = loss_and_grads(fresh()[0], batch_dev, settings)
+    finally:
+        sparse_conv.sparse_conv = conv_launch
+    plain_l2 = l2_errors(plain_grads, cpu_grads)
+    tol = GRAD_TOL["f32"]
+    worst = {part: max((v, k) for k, v in l2.items()
+                       if encoder_leaf(k) == (part == "encoder"))
+             for part in ("decoder", "encoder")}
+    worst_plain = max((v, k) for k, v in plain_l2.items()
+                      if encoder_leaf(k))
+    loss_diff = loss.double().item() - cpu_loss.double().item()
+    emit(phase="tpose_grads_vs_cpu", loss=loss.item(),
+         cpu_loss=cpu_loss.item(), loss_diff=loss_diff, leaves=len(l2),
+         worst_l2_rel=worst, volume_cotangent_l2_rel=vol_l2,
+         encoder_plain_conv_worst_l2_rel=worst_plain,
+         tol_l2_rel=dict(decoder=tol[0], volume_cotangent=tol[0],
+                         encoder_plain_conv=tol[1]), cpu_step_s=cpu_s)
+    if not (torch.isfinite(loss)
+            and abs(loss_diff) <= tol[0] * abs(cpu_loss.item())
+            and worst["decoder"][0] <= tol[0]
+            and all(x <= tol[0] for x in vol_l2)
+            and worst_plain[0] <= tol[1]):
+        failed.append(f"tpose step vs the CPU step: loss {loss_diff}, "
+                      f"worst leaves {worst}, volume cotangents {vol_l2}, "
+                      f"encoder with the plain conv {worst_plain}")
+    del plain_grads, card_vols, cpu_vols
+    del card_step, cpu_grads, grads, p_cpu, p0
+
+    # an eager step on one batch, timed; then its parts apart
+    tp, tbn = fresh()
+    opt = optimizer.build_optimizer(tp, lambda t: 5e-4)
+    step_ms = median_ms(torch, lambda: train_step(
+        tp, tbn, opt, batch_dev, settings, device=dev),
+        runs=TPOSE_STEP_RUNS, warmup=1)
+    busy, kernels = profile_step(torch, lambda: train_step(
+        tp, tbn, opt, batch_dev, settings, device=dev), "tpose_step", "f32",
+        step_ms)
+    emit(phase="tpose_step", step_ms=step_ms,
+         rays_per_s=1e3 * n_rays / step_ms, device_busy_ms=busy,
+         launches=kernels, card=card)
+    emit(phase="tpose_profile", card=card, **tpose_parts(
+        torch, tp, batch_dev, settings, tpose_xyzc))
+    del tp, tbn, opt
+
+    # -- the harness: Trainer fit + validate from the YAML
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=dev)
+    init_s = time.perf_counter() - t0
+    with torch.no_grad():
+        trainer.params["alpha_fc"]["b"] += ALPHA_BIAS
+    try:
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        trainer.fit()
+        sync(torch, dev)
+        fit_s = time.perf_counter() - t0
+        fit_counts = kernel_counts()
+        ckpts = sorted(os.listdir(cfg.trained_model_dir))
+        cfg.log_interval = 10 ** 9
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        trainer.train_epoch(2)
+        sync(torch, dev)
+        epoch_s = time.perf_counter() - t0
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.validate()
+        sync(torch, dev)
+        val_s = time.perf_counter() - t0
+        val_counts = kernel_counts()
+        images = len(trainer.test_dataset)
+        run = trainer.run
+        emit(phase="tpose_train", config=TPOSE_CONFIG, steps_per_dispatch=G,
+             dispatches_per_epoch=TPOSE_DISPATCHES, init_s=init_s,
+             fit_s=fit_s, fit_launches=fit_counts, checkpoints=ckpts,
+             bank_installs=run.bank.installs, bank_rows=run.bank.capacity,
+             graph_captures=0 if run.opt.step_graph is None else
+             run.opt.step_graph.captures,
+             epoch_dispatch_ms=1e3 * epoch_s / TPOSE_DISPATCHES,
+             epoch_rays_per_s=TPOSE_DISPATCHES * G * cfg.N_rand / epoch_s,
+             step_ms=step_ms, rays_per_s=1e3 * n_rays / step_ms,
+             validate_images=images,
+             validate_ms_per_image=1e3 * val_s / max(images, 1),
+             validate_launches=val_counts, metrics=metrics,
+             loss_median=trainer.recorder.scalars["loss"].median, card=card)
+        if (not {"latest.ckpt", "0.ckpt", "1.ckpt"} <= set(ckpts)
+                or run.bank.installs != 1 or run.opt.step_graph is not None
+                or not math.isfinite(metrics["psnr"])
+                or not 0 <= metrics["ssim"] <= 1 or images < 1
+                or fit_counts["hat_fwd"] or fit_counts["hat_bwd"]
+                or fit_counts["conv_dx"] != TPOSE_DISPATCHES * 2 * G
+                * CONV_LAYERS or not val_counts["conv"] > 0):
+            failed.append(f"tpose_train: checkpoints {ckpts}, bank installs "
+                          f"{run.bank.installs}, metrics {metrics} over "
+                          f"{images} images, launches {fit_counts} "
+                          f"{val_counts}")
+    finally:
+        trainer.close()
+    return dict(conv=conv, fit=fit_counts, validate=val_counts,
+                render=render_counts)
+
+
+def busy_ms(torch, fn, what):
+    """The card's busy ms in one call of fn() (the union of its kernels',
+    copies' and fills' intervals in a torch.profiler trace,
+    tools/trace_loss.device_events and busy_share): device time, whatever
+    the host's launch time."""
+    from neuralbody_tpu_torch.tools.trace_loss import busy_share, device_events
+    from neuralbody_tpu_torch.utils import cuda_build
+    busy, _, _ = busy_share(device_events(fn, os.path.join(
+        cuda_build.BUILD_DIR, f"parts_{what}.json")))
+    return busy / 1e3
+
+
+def tpose_parts(torch, params, batch, settings, tpose_xyzc):
+    """The device ms of one T-pose training step's parts, each traced apart
+    on the step's own full-width inputs (busy_ms): the encoder (the
+    scatter of the codes, 17 convs with their BatchNorms, the densify)
+    forward, and its backward (17 dx convs, the conv weight gradients,
+    the BatchNorm backwards); the warp sample (the four T-pose volumes at
+    the posed grid's T-pose coordinates) and its backward scatter into the
+    T-pose volumes; the ray sample (the warped volumes at the samples'
+    posed coordinates) and its backward scatter into the warped volumes;
+    the decode MLP forward and backward."""
+    from neuralbody_tpu_torch.renderer.tpose_renderer import \
+        tpose_grid_coords
+    from neuralbody_tpu_torch.ops.ray_ops import sample_along_rays
+    s = settings
+    m = s.model
+    for p in leaves(params):
+        p[1].requires_grad_(True)
+    try:
+        vols, _ = tpose_xyzc.encode_tpose_voxels(params, batch["geom"], m)
+        vols0 = [v[0].detach().requires_grad_(True) for v in vols]
+        tgc = tpose_grid_coords(batch["ptot_pts"][0], batch["tbounds"][0],
+                                s.voxel_size, m.encoder.out_sh)
+        warped = tpose_xyzc.warp_volumes(vols0, tgc, m.ptot_shape)
+        warped0 = [w.detach().requires_grad_(True) for w in warped]
+        pts, _ = sample_along_rays(batch["ray_o"][0], batch["ray_d"][0],
+                                   batch["near"][0], batch["far"][0],
+                                   s.n_samples)
+        wpts = pts.reshape(-1, 3)
+        ppts = torch.matmul(wpts - batch["Th"][0].reshape(1, 3),
+                            batch["R"][0])
+        pgc = ((ppts - batch["pbounds"][0][0]) / torch.tensor(
+            s.ptot_vsize, device=wpts.device)) / torch.tensor(
+                m.ptot_shape, dtype=torch.float32,
+                device=wpts.device) * 2.0 - 1.0
+        pgc = pgc.flip(-1)
+        feat = tpose_xyzc.sample_warped(warped0, pgc)
+        feat0 = feat.detach().requires_grad_(True)
+        vdir = torch.nn.functional.normalize(wpts, dim=-1)
+        raw = tpose_xyzc.decode(params, feat0, wpts, vdir,
+                                batch["latent_index"][0], m)
+
+        def back(outs, ins):
+            cots = [torch.ones_like(o) for o in outs]
+            return lambda: torch.autograd.grad(outs, ins, cots,
+                                               retain_graph=True,
+                                               allow_unused=True)
+
+        parts = dict(
+            encoder=lambda: tpose_xyzc.encode_tpose_voxels(
+                params, batch["geom"], m),
+            encoder_backward=back(vols, [p for _, p in leaves(params)
+                                         if p.requires_grad]),
+            warp_sample=lambda: tpose_xyzc.warp_volumes(vols0, tgc,
+                                                        m.ptot_shape),
+            warp_sample_backward=back(warped, vols0),
+            ray_sample=lambda: tpose_xyzc.sample_warped(warped0, pgc),
+            ray_sample_backward=back([feat], warped0),
+            decode=lambda: tpose_xyzc.decode(
+                params, feat0, wpts, vdir, batch["latent_index"][0], m),
+            decode_backward=back([raw], [feat0] + [
+                p for _, p in leaves(params) if p.requires_grad]))
+        return dict(
+            points=dict(warp=tgc.shape[0], rays_x_samples=wpts.shape[0]),
+            **{f"{k}_ms": busy_ms(torch, fn, f"tpose_{k}")
+               for k, fn in parts.items()})
+    finally:
+        for p in leaves(params):
+            p[1].requires_grad_(False)
+
+
 def nerf_family(torch, dev, card, ebatch, rbatch):
     """The NeRF baseline's phases: the dense kernel against its plain
     version on the operands of a real full-width step, the render and the
@@ -2073,7 +2589,8 @@ def main():
     emit(phase="build",
          sources={"neuralbody_tpu_torch/csrc/hat_interp.cu":
                   ["hat_interp_level_cuda (lookup, scan)",
-                   "hat_interp_level_bwd_cuda (lookup, scan)"],
+                   "hat_interp_level_bwd_cuda (fixed order: scan, row "
+                   "sums)"],
                   "neuralbody_tpu_torch/csrc/sparse_conv.cu":
                   ["sparse_conv_cuda (tensor cores: bf16 mma.sync and "
                    "tf32x3, the reduction split over the blocks of a "
@@ -2168,9 +2685,9 @@ def main():
         level_inputs[mode].append((feats, sites, rows, pos))
         return launch(feats, sites, rows, pos, out=out)
 
-    def bwd_recorder(grad, sites, rows, pos, dtype):
+    def bwd_recorder(grad, sites, rows, pos, dtype, sorted_rows=None):
         bwd_inputs[mode].append((grad, sites, rows, pos, dtype))
-        return bwd_launch(grad, sites, rows, pos, dtype)
+        return bwd_launch(grad, sites, rows, pos, dtype, sorted_rows)
 
     # and every conv the encoder hands the conv wrapper: the render's 17
     # forward convs, and the 17 dx convs that the training step's backward
@@ -2751,34 +3268,21 @@ def main():
         emit(phase="timing_sum", kernel="hat_interp_level", mode=mode,
              levels=len(levels), card=card, **tot)
 
+    # the backward as a step runs it: one sort of the four levels' row ids
+    # (sort_ms), then the level's two kernels; ms is their sum
     for mode, levels in bwd_inputs.items():
-        tot = dict(ms=0.0, scan_ms=0.0, plain_ms=0.0, library_ms=0.0,
-                   bound_ms=0.0)
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
         bound_by = set()
-        for lvl, (grad, sites, rows, pos, dtype) in enumerate(levels, 1):
+        plan = [(rows, sites.shape[0]) for _, sites, rows, _, _ in levels]
+        srt = hat_kernel.sort_rows(plan)
+        tot["sort_ms"] = median_ms(torch, lambda: hat_kernel.sort_rows(plan))
+        tot["ms"] += tot["sort_ms"]
+        for lvl, ((grad, sites, rows, pos, dtype), srt_l) in enumerate(
+                zip(levels, srt), 1):
             ngrp, P, C = grad.shape
             capS = sites.shape[0]
             k_ms = median_ms(torch, lambda: hat_kernel.hat_interp_level_bwd(
-                grad, sites, rows, pos, dtype))
-            # the same kernel finding a point's rows by its scan
-            hat_kernel.LOOKUP = False
-            try:
-                s_ms = median_ms(torch, lambda: (
-                    hat_kernel.hat_interp_level_bwd(grad, sites, rows, pos,
-                                                    dtype)))
-                scan_out = hat_kernel.hat_interp_level_bwd(grad, sites, rows,
-                                                           pos, dtype)
-            finally:
-                hat_kernel.LOOKUP = True
-            out = hat_kernel.hat_interp_level_bwd(grad, sites, rows, pos,
-                                                  dtype)
-            scan_err = (scan_out - out).abs().max().item()
-            scale = out.abs().max().item()
-            if not scan_err <= KERNEL_TOL[mode] * scale:
-                raise AssertionError(f"hat backward {mode} level {lvl}: scan "
-                                     f"and lookup differ by {scan_err} at "
-                                     f"scale {scale}")
-            del scan_out, out
+                grad, sites, rows, pos, dtype, srt_l))
             p_ms = median_ms(torch, lambda: (
                 hat_kernel.hat_interp_level_bwd_plain(grad, sites, rows, pos,
                                                       dtype)), runs=10)
@@ -2800,10 +3304,9 @@ def main():
             bound_by.add(by)
             emit(phase="timing", kernel="hat_interp_level_bwd", mode=mode,
                  level=lvl, capR=rows.shape[1], C=C, kernel_ms=k_ms,
-                 scan_ms=s_ms, scan_vs_lookup_max_abs=scan_err,
                  plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=by,
                  bytes=nbytes, ops=ops, card=card)
-            for k, v in (("ms", k_ms), ("scan_ms", s_ms), ("plain_ms", p_ms),
+            for k, v in (("ms", k_ms), ("plain_ms", p_ms),
                          ("library_ms", l_ms), ("bound_ms", b_ms)):
                 tot[k] += v
         tot["bound_by"] = bound_by.pop() if len(bound_by) == 1 else "bytes"
@@ -3134,6 +3637,14 @@ def main():
                                     os.path.join(harness, "nerf"), harness,
                                     failed)
 
+    # -- 6e. graphed bf16 steps from quality_short's trained state against
+    # eager ones (TRAINED_TOL), then the T-pose variant at full width ------
+    torch.cuda.empty_cache()
+    graph_vs_eager_trained(torch, dev, card, conv, failed)
+    torch.cuda.empty_cache()
+    tpose = tpose_family(torch, dev, card, root,
+                         os.path.join(harness, "tpose"), failed)
+
     # -- 7. the kernels ---------------------------------------------------
     kernels = []
     for kind, kname, line in (("fwd", "hat_interp_level", 44),
@@ -3150,7 +3661,8 @@ def main():
                 "max_abs_err": (max_err if kind == "fwd" else bwd_err)[mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"], "scan_ms": t["scan_ms"],
+                "library_ms": t["library_ms"], "scan_ms": t.get("scan_ms"),
+                "sort_ms": t.get("sort_ms"),
                 "replay_launches_per_step": graph_replay[mode][
                     "hat_fwd" if kind == "fwd" else "hat_bwd"],
                 "replay_launches_per_render": render_replay[mode][
@@ -3239,6 +3751,21 @@ def main():
                      None if quality_c is None else quality_c[key]),
                  run_evaluate_launches=None if key is None else eval_c[key],
                  mesh_launches=None if key is None else mesh_c[key])
+    # the T-pose path (f32, eager): its conv kernel's numbers at the T-pose
+    # encoder's shapes, and its launches over Trainer fit and validate
+    for k in kernels:
+        kind = {"sparse_conv[f32]": "fwd",
+                "sparse_conv_dx[f32]": "dx"}.get(k["name"])
+        t = tpose["conv"].get(kind, {})
+        fit = (tpose["fit"]["conv"] - tpose["fit"]["conv_dx"]
+               if kind == "fwd" else tpose["fit"]["conv_dx"])
+        val = (tpose["validate"]["conv"] - tpose["validate"]["conv_dx"]
+               if kind == "fwd" else tpose["validate"]["conv_dx"])
+        k.update(tpose_fit_launches=fit if kind else None,
+                 tpose_validate_launches=val if kind else None,
+                 **{f"tpose_{x}": t.get(x) for x in (
+                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                     "max_abs_err")})
     if failed:
         raise AssertionError("; ".join(failed))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -92,41 +92,39 @@
 // _bwd_kernel does; exact f32 w in f32 mode). Sentinel and out-of-range
 // rows are skipped: in the reference they scatter into the dropped pad row.
 // Neither the gathered d_rf nor the [ngrp, P, capR] weights reach device
-// memory. Rows repeat across groups, so each row's sum lands in d_feats
-// through float atomics; their order changes from run to run, the only
-// nondeterminism (f32 rounding of the sum).
+// memory. Rows repeat across groups; their sums run in one fixed order, so
+// two runs give equal bits (float atomics, in an order that changes from
+// run to run, let a trained state's bf16 training runs drift apart: the
+// graph-vs-eager check's fault 3.2).
 //
 // What bounds it on an H100: reading the f32 cotangent, 118.4 MB per step
 // over the four levels at the reference working point (10.8 / 21.5 / 43.1 /
 // 43.1 MB), plus pos, rows and the used sites, and writing the [capS, C]
 // f32 output: ~132 MB, ~39 us at 3.35 TB/s.
 //
-// Design: the transpose of the forward's lookup. One block of 8 warps per
-// group, all C channels. It copies the group's cotangent [P, C] into
-// shared memory once (cp.async; it may be a column slice of the [ngrp, P,
-// 352] gradient), stages the group's row ids and coordinates, and builds
-// the same cell -> staged-row table as the forward (a block that finds a
-// cell listed twice scans instead; `lookup` 0 always scans). A thread per
-// (point, corner) finds the corner's weight and staged row and enters it
-// into that row's list (a shared-memory linked list; the links are set by
-// integer atomicExch, native on the card, where a float atomicAdd on
-// shared memory is a compare-and-swap loop). Then a warp per staged row
-// walks its list and sums w * grad[p, :] in registers (lane l holds
-// channels l, l + 32, ...: one conflict-free 128-byte read of the staged
-// cotangent an entry), and a row some point reaches goes to d_feats as one
-// coalesced run of C float atomics. A point's weights are computed once,
-// and a row costs nothing unless a point reaches it. The scan: a warp per
-// staged row weighs every point (ballot over the nonzero ones). Rows that
-// do not fit 200 KB of shared memory beside the cotangent go in several
-// passes; P * (4 C + 76) bytes must leave room for four rows.
+// Design, in two kernels. One block of 8 warps per group, all C channels,
+// copies the group's cotangent [P, C] into shared memory once (cp.async; it
+// may be a column slice of the [ngrp, P, 352] gradient) and stages the
+// group's row ids and coordinates; a warp per staged row weighs every point
+// of the group in order (ballot over the nonzero weights; lane l holds
+// channels l, l + 32, ...) and writes the row's sum to that (group, slot)'s
+// row of a scratch [ngrp * capR, C]. Rows that do not fit 200 KB of shared
+// memory beside the cotangent go in several passes; P * (4 C + 12) bytes
+// must leave room for four rows. The second kernel, a warp per site, finds
+// the slots that list the site in the row ids sorted by one stable sort
+// (ops/hat_kernel.sort_rows, all four levels at once) and adds their
+// scratch rows in the order of their flat index into d_feats.
 // Earlier designs: a block per (group, 32 channels) in which each warp
 // walked its rows and weighed every point for each took 0.256 ms for the
 // four levels, 6.5x the bound; a block per group that added each corner's
 // w * grad into an f32 accumulator [rows, C] in shared memory took 0.158
-// ms, its float atomicAdds compare-and-swap loops. This design: 0.124 ms
-// in both modes on an H100 80GB HBM3 at 700 W (3.2x the bound); level 4
-// (1024 sites, which the 658 groups share) costs the most, its rows' global
-// atomics landing on few addresses.
+// ms, its float atomicAdds compare-and-swap loops; a block per group that
+// found each point's rows through the forward's cell table, listed them
+// per row with integer atomics and added each row into d_feats with float
+// atomics took 0.124 ms in both modes on an H100 80GB HBM3 at 700 W (3.2x
+// the bound), in an order that changed from run to run. This design: the
+// two kernels 0.30 ms and the sort 0.10 ms for the four levels of a step
+// (tools: neuralbody_tpu_torch's chip_smoke.py timings; PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -471,17 +469,19 @@ int launch_c(int C, const void* feats, const void* sites, const void* rows,
 }
 
 // CPL = C / 32 channels a lane, lane l holding channels l + 32 j. tile_rows
-// (a multiple of 4) rows are staged per pass; table_size is a power of two
-// >= 2 * tile_rows. T: the features' type, for the weights' rounding. vec:
-// the cotangent's rows are 16-byte aligned (16-byte copies, else 4-byte).
+// (a multiple of 4) rows are staged per pass. T: the features' type, for
+// the weights' rounding. vec: the cotangent's rows are 16-byte aligned
+// (16-byte copies, else 4-byte). Writes each (group, slot)'s sum to its row
+// of partial [ngrp * capR, C], zeros where no point reaches the row; the
+// slots of sentinel rows are left unwritten (the second pass reads none).
 template <typename T, int CPL>
 __global__ void __launch_bounds__(FWD_THREADS)
 hat_interp_bwd_kernel(const float* __restrict__ grad, long long grad_stride,
                       const int* __restrict__ sites,
                       const int* __restrict__ rows,
                       const float* __restrict__ pos,
-                      float* __restrict__ d_feats, int P, int capR, int capS,
-                      int tile_rows, int table_size, int lookup, int vec) {
+                      float* __restrict__ partial, int P, int capR, int capS,
+                      int tile_rows, int vec) {
   constexpr int C = 32 * CPL;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* s_grad = reinterpret_cast<float*>(smem_raw);  // [P][C]
@@ -489,19 +489,14 @@ hat_interp_bwd_kernel(const float* __restrict__ grad, long long grad_stride,
   float* s_y = s_x + tile_rows;
   float* s_z = s_y + tile_rows;
   int* s_row = reinterpret_cast<int*>(s_z + tile_rows);
-  int* s_head = s_row + tile_rows;  // a staged row's first corner entry
-  float* s_pos = reinterpret_cast<float*>(s_head + tile_rows);  // [P][3]
-  float* s_w = s_pos + 3 * P;       // [8 P] corner c of point p at 8 p + c
-  int* s_next = reinterpret_cast<int*>(s_w + 8 * P);  // [8 P] list links
-  int* s_tab = s_next + 8 * P;                         // [table_size]
-  int* s_flag = s_tab + table_size;  // [0] rows to scan, [1] duplicate cell
+  float* s_pos = reinterpret_cast<float*>(s_row + tile_rows);  // [P][3]
+  int* s_flag = reinterpret_cast<int*>(s_pos + 3 * P);  // rows to scan
 
   const long long g = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int* grow = rows + g * capR;
-  const unsigned mask = table_size - 1;
 
   // the group's cotangent, read once: [P][C] into shared memory
   const float* gg = grad + g * P * grad_stride;
@@ -527,117 +522,117 @@ hat_interp_bwd_kernel(const float* __restrict__ grad, long long grad_stride,
   for (int r0 = 0; r0 < capR; r0 += tile_rows) {
     const int nr = min(tile_rows, capR - r0);
     __syncthreads();  // the previous pass is written out
-    if (tid < 2) s_flag[tid] = 0;
-    if (lookup)
-      for (int i = tid; i < table_size; i += FWD_THREADS) s_tab[i] = -1;
+    if (tid == 0) s_flag[0] = 0;
     __syncthreads();
     for (int i = tid; i < nr; i += FWD_THREADS) {
       const int r = grow[r0 + i];
       const bool valid = r >= 0 && r < capS;
       s_row[i] = valid ? r : -1;
-      s_head[i] = -1;
       const int* sc = sites + 3LL * (valid ? r : 0);
       s_x[i] = valid ? static_cast<float>(sc[0]) : 1e9f;
       s_y[i] = valid ? static_cast<float>(sc[1]) : 1e9f;
       s_z[i] = valid ? static_cast<float>(sc[2]) : 1e9f;
       if (valid) atomicMax(&s_flag[0], i + 1);
     }
-    __syncthreads();
-    const int n = s_flag[0];  // rows past the last valid one weigh 0
-    if (lookup) insert_cells(s_x, s_y, s_z, s_row, s_tab, mask, nr, &s_flag[1]);
     asm volatile("cp.async.wait_all;\n" ::);
     __syncthreads();
+    const int n = s_flag[0];  // rows past the last valid one weigh 0
 
-    if (lookup && !s_flag[1]) {
-      // each corner of each point: its weight, entered into the list of its
-      // staged row (integer atomics: the lists' order is the only thing
-      // that varies from run to run)
-      for (int e = tid; e < 8 * P; e += FWD_THREADS) {
-        const int p = e >> 3;
-        int row;
-        const float w =
-            corner_weight<T>(s_pos[3 * p], s_pos[3 * p + 1], s_pos[3 * p + 2],
-                             e & 7, s_x, s_y, s_z, s_tab, mask, row);
-        if (w != 0.f) {
-          s_w[e] = w;
-          s_next[e] = atomicExch(&s_head[row], e);
+    // a warp per staged row weighs every point of the group, in order
+    for (int i = warp; i < n; i += FWD_WARPS) {
+      if (s_row[i] < 0) continue;
+      const float sx = s_x[i], sy = s_y[i], sz = s_z[i];
+      float acc[CPL];
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) acc[j] = 0.f;
+      for (int p0 = 0; p0 < P; p0 += 32) {
+        const int p = p0 + lane;
+        float w = 0.f;
+        if (p < P) {
+          w = tent(s_pos[3 * p], sx);
+          w = w * tent(s_pos[3 * p + 1], sy);
+          w = w * tent(s_pos[3 * p + 2], sz);
+          w = weight_operand(w, static_cast<const T*>(nullptr));
+        }
+        unsigned nz = __ballot_sync(0xffffffffu, w != 0.f);
+        while (nz) {
+          const int src = __ffs(nz) - 1;
+          nz &= nz - 1u;
+          const float wv = __shfl_sync(0xffffffffu, w, src);
+          const float* gr = s_grad + (p0 + src) * C + lane;
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) acc[j] = fmaf(wv, gr[32 * j], acc[j]);
         }
       }
-      __syncthreads();
-      // a warp per staged row sums its list in registers
-      for (int i = warp; i < n; i += FWD_WARPS) {
-        int e = s_head[i];
-        if (e < 0) continue;  // no point reaches the row (warp-uniform)
-        float acc[CPL];
+      float* dst = partial + (g * capR + r0 + i) * C + lane;
 #pragma unroll
-        for (int j = 0; j < CPL; ++j) acc[j] = 0.f;
-        do {
-          const float w = s_w[e];
-          const float* gr = s_grad + (e >> 3) * C + lane;
-#pragma unroll
-          for (int j = 0; j < CPL; ++j) acc[j] = fmaf(w, gr[32 * j], acc[j]);
-          e = s_next[e];
-        } while (e >= 0);
-        float* dst = d_feats + static_cast<long long>(s_row[i]) * C + lane;
-#pragma unroll
-        for (int j = 0; j < CPL; ++j) atomicAdd(dst + 32 * j, acc[j]);
-      }
-    } else {
-      // the scan: a warp per staged row weighs every point of the group
-      for (int i = warp; i < n; i += FWD_WARPS) {
-        if (s_row[i] < 0) continue;
-        const float sx = s_x[i], sy = s_y[i], sz = s_z[i];
-        float acc[CPL];
-#pragma unroll
-        for (int j = 0; j < CPL; ++j) acc[j] = 0.f;
-        bool hit = false;
-        for (int p0 = 0; p0 < P; p0 += 32) {
-          const int p = p0 + lane;
-          float w = 0.f;
-          if (p < P) {
-            w = tent(s_pos[3 * p], sx);
-            w = w * tent(s_pos[3 * p + 1], sy);
-            w = w * tent(s_pos[3 * p + 2], sz);
-            w = weight_operand(w, static_cast<const T*>(nullptr));
-          }
-          unsigned nz = __ballot_sync(0xffffffffu, w != 0.f);
-          hit |= nz != 0u;
-          while (nz) {
-            const int src = __ffs(nz) - 1;
-            nz &= nz - 1u;
-            const float wv = __shfl_sync(0xffffffffu, w, src);
-            const float* gr = s_grad + (p0 + src) * C + lane;
-#pragma unroll
-            for (int j = 0; j < CPL; ++j) acc[j] = fmaf(wv, gr[32 * j], acc[j]);
-          }
-        }
-        if (!hit) continue;
-        float* dst = d_feats + static_cast<long long>(s_row[i]) * C + lane;
-#pragma unroll
-        for (int j = 0; j < CPL; ++j) atomicAdd(dst + 32 * j, acc[j]);
-      }
+      for (int j = 0; j < CPL; ++j) dst[32 * j] = acc[j];
     }
   }
+}
+
+// The fixed-order mode's second pass: d_feats[s, :] = the sum of the
+// partial rows of the (group, slot) pairs that list site s, in the order of
+// their flat index g * capR + r. keys: rows' ids plus key_base, sorted (a
+// stable sort, which keeps that order among equal ids), order: each key's
+// flat index plus order_base (several levels' rows may share one sort:
+// ops/hat_kernel.sort_rows). A warp per site finds its run of keys by
+// binary search and adds the run's partial rows one after the other; every
+// site row is written (zeros where no group lists it), so d_feats needs no
+// zeroing.
+template <int CPL>
+__global__ void __launch_bounds__(FWD_THREADS)
+hat_row_sum_kernel(const float* __restrict__ partial,
+                   const int* __restrict__ keys,
+                   const long long* __restrict__ order, long long n_keys,
+                   int key_base, long long order_base, int capS,
+                   float* __restrict__ d_feats) {
+  constexpr int C = 32 * CPL;
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * FWD_WARPS + (threadIdx.x >> 5);
+  if (s >= capS) return;
+  const int key = s + key_base;
+  long long lo = 0, hi = n_keys;
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (keys[mid] < key) lo = mid + 1; else hi = mid;
+  }
+  const long long first = lo;
+  hi = n_keys;
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (keys[mid] <= key) lo = mid + 1; else hi = mid;
+  }
+  float acc[CPL];
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) acc[j] = 0.f;
+  for (long long k = first; k < lo; ++k) {
+    const float* src = partial + (order[k] - order_base) * C + lane;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) acc[j] += src[32 * j];
+  }
+  float* dst = d_feats + static_cast<long long>(s) * C + lane;
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) dst[32 * j] = acc[j];
 }
 
 template <typename T, int CPL>
 int launch_bwd(const void* grad, long long grad_stride, const void* sites,
                const void* rows, const void* pos, void* d_feats, int ngrp,
-               int P, int capR, int capS, int lookup, cudaStream_t stream) {
+               int P, int capR, int capS, void* partial, const void* keys,
+               const void* order, int key_base, long long order_base,
+               cudaStream_t stream) {
   constexpr int C = 32 * CPL;
-  // per staged row: three coordinates, its id, its list head and at most 16
-  // bytes of the table; per block: the cotangent, the positions, the corner
-  // weights and links, two flags
-  const long long per_row = 20 + 16;
-  const long long fixed = static_cast<long long>(P) * (4 * C + 12 + 64) + 16;
+  // per staged row: three coordinates and its id; per block: the
+  // cotangent, the positions and a flag
+  const long long per_row = 16;
+  const long long fixed = static_cast<long long>(P) * (4 * C + 12) + 16;
   const long long fit = (FWD_SMEM_BUDGET - fixed) / per_row / 4 * 4;
   if (fit < 4) return static_cast<int>(cudaErrorInvalidValue);
   const int tile_rows =
       static_cast<int>(min(static_cast<long long>((capR + 3) / 4 * 4), fit));
-  int table_size = 32;
-  while (table_size < 2 * tile_rows) table_size *= 2;
-  const size_t smem = static_cast<size_t>(P) * (4 * C + 12 + 64) +
-                      static_cast<size_t>(tile_rows) * 20 + 4 * table_size + 8;
+  const size_t smem = static_cast<size_t>(P) * (4 * C + 12) +
+                      static_cast<size_t>(tile_rows) * per_row + 16;
   auto kernel = hat_interp_bwd_kernel<T, CPL>;
   static bool done[64] = {};  // one per instantiation of this function
   const int err = allow_smem(kernel, done);
@@ -647,8 +642,14 @@ int launch_bwd(const void* grad, long long grad_stride, const void* sites,
   kernel<<<ngrp, FWD_THREADS, smem, stream>>>(
       static_cast<const float*>(grad), grad_stride,
       static_cast<const int*>(sites), static_cast<const int*>(rows),
-      static_cast<const float*>(pos), static_cast<float*>(d_feats), P, capR,
-      capS, tile_rows, table_size, lookup, vec);
+      static_cast<const float*>(pos), static_cast<float*>(partial), P, capR,
+      capS, tile_rows, vec);
+  hat_row_sum_kernel<CPL><<<(capS + FWD_WARPS - 1) / FWD_WARPS, FWD_THREADS,
+                            0, stream>>>(
+      static_cast<const float*>(partial), static_cast<const int*>(keys),
+      static_cast<const long long*>(order),
+      static_cast<long long>(ngrp) * capR, key_base, order_base, capS,
+      static_cast<float*>(d_feats));
   return 0;
 }
 
@@ -656,20 +657,25 @@ template <typename T>
 int launch_bwd_c(int C, const void* grad, long long grad_stride,
                  const void* sites, const void* rows, const void* pos,
                  void* d_feats, int ngrp, int P, int capR, int capS,
-                 int lookup, cudaStream_t stream) {
+                 void* partial, const void* keys, const void* order,
+                 int key_base, long long order_base, cudaStream_t stream) {
   switch (C) {
     case 32:
       return launch_bwd<T, 1>(grad, grad_stride, sites, rows, pos, d_feats,
-                              ngrp, P, capR, capS, lookup, stream);
+                              ngrp, P, capR, capS, partial, keys, order,
+                              key_base, order_base, stream);
     case 64:
       return launch_bwd<T, 2>(grad, grad_stride, sites, rows, pos, d_feats,
-                              ngrp, P, capR, capS, lookup, stream);
+                              ngrp, P, capR, capS, partial, keys, order,
+                              key_base, order_base, stream);
     case 96:
       return launch_bwd<T, 3>(grad, grad_stride, sites, rows, pos, d_feats,
-                              ngrp, P, capR, capS, lookup, stream);
+                              ngrp, P, capR, capS, partial, keys, order,
+                              key_base, order_base, stream);
     case 128:
       return launch_bwd<T, 4>(grad, grad_stride, sites, rows, pos, d_feats,
-                              ngrp, P, capR, capS, lookup, stream);
+                              ngrp, P, capR, capS, partial, keys, order,
+                              key_base, order_base, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -706,27 +712,35 @@ extern "C" int hat_interp_level_cuda(const void* feats, int feats_bf16,
 
 // grad rows of grad_stride floats, [ngrp, P, C] in the first C of each;
 // sites [capS, 3] int32, rows [ngrp, capR] int32, pos [ngrp, P, 3] f32, all
-// contiguous -> d_feats [capS, C] f32, contiguous and zeroed by the caller,
-// which this ADDS into. bf16 selects bf16-rounded weights. C is 32, 64, 96
-// or 128, and a group's cotangent, positions and corner lists, P (4 C + 76)
-// bytes, leave room in FWD_SMEM_BUDGET for four staged rows (else
-// cudaErrorInvalidValue). lookup: as for hat_interp_level_cuda.
-// Returns cudaGetLastError() after the launch (0 on success).
+// contiguous -> d_feats [capS, C] f32, contiguous, every row written.
+// partial: scratch [ngrp * capR, C] f32; keys (int32) and order (int64):
+// the level's run of ops/hat_kernel.sort_rows, whose keys are rows' ids
+// plus key_base and whose order entries are flat indices plus order_base.
+// bf16 selects bf16-rounded weights. C is 32, 64, 96 or 128, and a group's
+// cotangent and positions, P (4 C + 12) bytes, leave room in
+// FWD_SMEM_BUDGET for four staged rows (else cudaErrorInvalidValue). The
+// sums run in one fixed order: two calls give equal bits.
+// Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int hat_interp_level_bwd_cuda(const void* grad,
                                          long long grad_stride, int bf16,
                                          const void* sites, const void* rows,
                                          const void* pos, void* d_feats,
                                          int ngrp, int P, int capR, int capS,
-                                         int C, int lookup, void* stream) {
+                                         int C, void* partial,
+                                         const void* keys, const void* order,
+                                         int key_base, long long order_base,
+                                         void* stream) {
   if (ngrp <= 0 || P <= 0 || capR <= 0 || capS <= 0 || grad_stride < C)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err =
       bf16 ? launch_bwd_c<__nv_bfloat16>(C, grad, grad_stride, sites, rows,
                                          pos, d_feats, ngrp, P, capR, capS,
-                                         lookup, s)
+                                         partial, keys, order, key_base,
+                                         order_base, s)
            : launch_bwd_c<float>(C, grad, grad_stride, sites, rows, pos,
-                                 d_feats, ngrp, P, capR, capS, lookup, s);
+                                 d_feats, ngrp, P, capR, capS, partial, keys,
+                                 order, key_base, order_base, s);
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..utils.platform import constant
-from .hat_kernel import hat_interp_level, hat_interp_level_bwd
+from .hat_kernel import hat_interp_level, hat_interp_level_bwd, sort_rows
 
 # ---------------------------------------------------------------------------
 # host: planning (numpy; steady-state path dispatches to the C++ planner)
@@ -419,12 +419,20 @@ class _HatInterpolate(torch.autograd.Function):
         if gout.stride(-1) != 1 or gout.stride(0) != gout.shape[1] * \
                 gout.stride(1):
             gout = gout.contiguous()
+        need = [i for i in range(len(ctx.feat_meta))
+                if ctx.needs_input_grad[1 + i]]
+        # on the card one sort orders every level's row ids for the
+        # backward's fixed-order sums
+        srt = dict(zip(need, sort_rows(
+            [(saved[3 * i + 1], saved[3 * i].shape[0]) for i in need])
+            if gout.is_cuda and need else []))
         grads, c0 = [], 0
         for i, (C, dtype) in enumerate(ctx.feat_meta):
             if ctx.needs_input_grad[1 + i]:
                 sites, rows, pos = saved[3 * i:3 * i + 3]
                 grads.append(hat_interp_level_bwd(
-                    gout[..., c0:c0 + C], sites, rows, pos, dtype).to(dtype))
+                    gout[..., c0:c0 + C], sites, rows, pos, dtype,
+                    srt.get(i)).to(dtype))
             else:
                 grads.append(None)
             c0 += C

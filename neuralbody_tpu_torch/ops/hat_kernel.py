@@ -19,15 +19,16 @@ with C / 32 channels a lane and writes the point's channels as one run.
 The backward kernel (hat_interp_level_bwd_cuda) replaces
 neuralbody_tpu/ops/pallas_hat.py:_bwd_kernel and computes the whole
 gradient of hat_interp_level with respect to the features, the scatter of
-d_rf through the row lists included (atomics: rows repeat across groups).
-What bounds it: reading the f32 cotangent (the same 118.4 MB per step),
-plus pos, rows and the used sites, and writing the [capS, C] f32 output,
-~132 MB, ~39 us at 3.35 TB/s. Its design is the transpose of the
-forward's: a block per group copies the group's cotangent into shared
-memory once, finds each point's at most 8 rows through the same cell table
-(or the scan) and lists the points that reach each row; a warp per row
-sums its list in registers and adds the row into d_feats once. The source
-notes of both kernels say more.
+d_rf through the row lists included, in one fixed order: two runs give
+equal bits. What bounds it: reading the f32 cotangent (the same 118.4 MB
+per step), plus pos, rows and the used sites, and writing the [capS, C] f32
+output, ~132 MB, ~39 us at 3.35 TB/s. A block per group copies the group's
+cotangent into shared memory once, a warp per staged row weighs the
+group's points in order and writes the row's sum to that (group, slot)'s
+row of a scratch; a second kernel adds, for each site, the scratch rows of
+the slots that list it in the order of their flat index (sort_rows: one
+stable sort of the levels' row ids). The source notes of both kernels say
+more.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches its kernel or raises. The wrappers carry no autograd graph on the
@@ -47,9 +48,10 @@ from ..utils import cuda_build
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "hat_interp.cu"
 
 LAUNCHES = 0      # forward kernel launches since the last reset
-LOOKUP = True     # both kernels find a point's rows through the cell table
+LOOKUP = True     # the forward finds a point's rows through the cell table
 # (a block falls back to the scan where its group lists a cell twice); False
-# scans always: the same function, kept to time the two against each other
+# scans always: the same function, kept to time the two against each other.
+# The backward always scans (its sums run in one fixed order)
 BWD_LAUNCHES = 0  # backward kernel launches (the plain paths count none)
 
 
@@ -110,7 +112,7 @@ def _kernels():
     fwd.argtypes = [p, i, p, p, p, p, i, i, i, i, i, ll, i, p]
     fwd.restype = ctypes.c_int
     bwd = lib.hat_interp_level_bwd_cuda
-    bwd.argtypes = [p, ll, i, p, p, p, p, i, i, i, i, i, i, p]
+    bwd.argtypes = [p, ll, i, p, p, p, p, i, i, i, i, i, p, p, p, i, ll, p]
     bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -223,7 +225,31 @@ def _check_bwd(grad, sites, rows, pos, dtype):
                          f"C={C}")
 
 
-def hat_interp_level_bwd(grad, sites, rows, pos, dtype):
+def sort_rows(levels):
+    """The row ids of one or more levels' plans in one stable sort, for the
+    backward's fixed-order second pass. levels: [(rows [ngrp, capR] int32,
+    capS)]. Each level's ids, clamped to [-1, capS], are shifted into a
+    range of their own (key_base: one more than the sum of capS + 2 over
+    the levels before), so level l's entries are one run of the sorted
+    array, starting at order_base (the sum of the earlier levels' sizes).
+    Returns [(keys, order, key_base, order_base)] a level: its run of the
+    sorted keys (int32) and of their flat indices (int64)."""
+    bases, base = [], 1
+    for _, capS in levels:
+        bases.append(base)
+        base += capS + 2
+    keys = torch.cat([r.reshape(-1).clamp(-1, capS) + b
+                      for (r, capS), b in zip(levels, bases)])
+    keys, order = torch.sort(keys, stable=True)
+    out, start = [], 0
+    for (r, _), b in zip(levels, bases):
+        n = r.numel()
+        out.append((keys[start:start + n], order[start:start + n], b, start))
+        start += n
+    return out
+
+
+def hat_interp_level_bwd(grad, sites, rows, pos, dtype, sorted_rows=None):
     """The gradient of hat_interp_level with respect to its features.
 
     Args:
@@ -232,12 +258,18 @@ def hat_interp_level_bwd(grad, sites, rows, pos, dtype):
         stride, never copied).
       sites, rows, pos: the forward's (see hat_interp_level).
       dtype: the features' dtype; bf16 selects the bf16-rounded weights.
+      sorted_rows: this level's entry of sort_rows (the kernel's second
+        pass reads it); sorted here when not given. The plain version needs
+        none.
 
     Returns d_feats [capS, C] f32 (capS = len(sites)). On the card the sum
-    lands through float atomics in an order that changes from run to run,
-    so it is reproducible to f32 rounding. The kernel holds a group's
-    cotangent in shared memory; a launch whose P does not fit there fails
-    and raises.
+    runs in one fixed order, so two runs give equal bits: the kernel writes
+    each group's sum for each of its rows to that (group, slot)'s own row
+    of a scratch [ngrp * capR, C] (scanning the group's points in order),
+    and a second kernel adds, for each site, the scratch rows of the slots
+    that list it in the order of their flat index (found in the row ids
+    sorted by one stable torch.sort, sort_rows). The kernel holds a group's cotangent in
+    shared memory; a launch whose P does not fit there fails and raises.
     """
     global BWD_LAUNCHES
     if grad.device.type == "cpu":
@@ -247,15 +279,25 @@ def hat_interp_level_bwd(grad, sites, rows, pos, dtype):
     _check_bwd(grad, sites, rows, pos, dtype)
     ngrp, P, C = grad.shape
     capS = sites.shape[0]
-    out = torch.zeros((capS, C), dtype=torch.float32, device=grad.device)
     if grad.numel() == 0 or rows.shape[1] == 0 or capS == 0:
-        return out
+        return torch.zeros((capS, C), dtype=torch.float32,
+                           device=grad.device)
+    out = torch.empty((capS, C), dtype=torch.float32, device=grad.device)
+    partial = torch.empty((rows.numel(), C), dtype=torch.float32,
+                          device=grad.device)
+    if sorted_rows is None:
+        sorted_rows = sort_rows([(rows, capS)])[0]
+    keys, order, key_base, order_base = sorted_rows
+    if keys.numel() != rows.numel():
+        raise ValueError(f"sorted_rows holds {keys.numel()} entries, rows "
+                         f"{rows.numel()}")
     fn = _kernels()[1]
     with torch.cuda.device(grad.device):
         err = fn(grad.data_ptr(), grad.stride(1),
                  int(dtype == torch.bfloat16), sites.data_ptr(),
                  rows.data_ptr(), pos.data_ptr(), out.data_ptr(), ngrp, P,
-                 rows.shape[1], capS, C, int(LOOKUP),
+                 rows.shape[1], capS, C, partial.data_ptr(),
+                 keys.data_ptr(), order.data_ptr(), key_base, order_base,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(

@@ -1,11 +1,11 @@
 """Render-function dispatch keyed on the settings type (counterpart of
 neuralbody_tpu/renderer/dispatch.py), so that the training and evaluation
-steps stay family-generic. The T-pose family is not ported yet: its
-settings type does not exist here, and an unknown type raises.
+steps stay family-generic. An unknown type raises.
 """
 from __future__ import annotations
 
 from .renderer import RenderSettings, render_density_grid, render_rays
+from .tpose_renderer import TposeRenderSettings, render_tpose_rays
 from .volume_renderer import (NerfRenderSettings, render_nerf_density_grid,
                               render_nerf_rays)
 
@@ -19,6 +19,8 @@ def get_render_fn(settings):
     """
     if isinstance(settings, NerfRenderSettings):
         return render_nerf_rays
+    if isinstance(settings, TposeRenderSettings):
+        return render_tpose_rays
     if isinstance(settings, RenderSettings):
         return render_rays
     raise TypeError(
@@ -28,7 +30,8 @@ def get_render_fn(settings):
 def get_density_grid_fn(settings):
     """Map Settings to the dense-grid density evaluator used by mesh
     extraction: latent_xyzc's multi-scale-volume decode or the NeRF
-    baseline's density-only trunk."""
+    baseline's density-only trunk. The T-pose family has none (its
+    settings raise TypeError, as in the JAX package)."""
     if isinstance(settings, NerfRenderSettings):
         return render_nerf_density_grid
     if isinstance(settings, RenderSettings):

@@ -6,12 +6,16 @@ and the comparison those checks share. Needs an NVIDIA GPU.
 
     python -m neuralbody_tpu_torch.tools.graph_noise [--runs 20]
         [--scenes full,small,config,fresh] [--graph-runs 10] [--ckpt DIR]
+        [--fixed-sum none|codes|hat|both]
 
-Two sums on the hat path add floats in an order that changes from run to
-run (the hat backward's atomicAdd to device memory, index_add_ in
-scatter_vertex_codes), so eager runs of the same steps from the same seeded
-state differ, and the encoder's conditioning amplifies that from step to
-step. The comparison: per leaf of the state a run leaves (params, Adam's
+Two sums on the hat path added floats in an order that changed from run
+to run: the hat backward's atomicAdd to device memory (it sums in one
+fixed order now) and index_add_ in scatter_vertex_codes (three or more
+vertices in one voxel; it moves the last bits of f32 codes, which bf16
+storage mostly rounds away). So eager runs of the same steps from the same
+state can differ, and the encoder's conditioning amplifies that from step
+to step; the tolerances were measured with the atomic backward and hold
+for it. The comparison: per leaf of the state a run leaves (params, Adam's
 mu and nu, the BN running stats, the losses as one leaf), the L2 distance
 ||a - b|| over the group's scale, the largest max(||a_l||, ||b_l||) of the
 group's leaves l; a leaf whose two tensors are equal is at 0. A group's
@@ -51,10 +55,21 @@ checkpoint (tools/convergence_run's <workdir>/trained: its params, BN
 stats and Adam state, its frame latents; alpha_fc's bias as trained) in
 place of the seeded one: the spread of trained weights. Only the full
 scene has the trained model's widths, so --ckpt takes no other scene.
+
+--fixed-sum swaps one (or both) of the two run-to-run sums for a sum in
+one fixed order, for this tool's runs only (the program has no such
+switch): "codes" makes scatter_vertex_codes a segment sum over the
+vertices sorted by row, "hat" makes the hat backward its plain version
+(ops/hat_kernel.hat_interp_level_bwd_plain) with the same segment sum in
+place of index_add_, under torch.use_deterministic_algorithms(True).
+The spread that is left says how much of it the swapped sum made. A swap
+holds for the eager runs only, whose spread is the question (no graphed
+runs, no stale copy, no mutations).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -159,6 +174,89 @@ def spread(runs):
                 if d > worst[g][0]:
                     worst[g] = (d, path)
     return worst
+
+
+# ---------------------------------------------------------------------------
+# the sums in one fixed order (--fixed-sum)
+# ---------------------------------------------------------------------------
+
+FIXED_SUMS = ("none", "codes", "hat", "both")
+
+
+def segment_sum(idx, src, n):
+    """out[r] = the sum of src's rows i with idx[i] == r, r < n, in one
+    order whatever the device: the rows sorted by index (a stable sort, so
+    a row's addends keep their order), each segment summed by
+    torch.segment_reduce, which adds a segment's addends one after the
+    other. idx [N] int in [0, n); src [N, C]. Differentiable with respect
+    to src."""
+    idx = idx.long()
+    order = torch.argsort(idx, stable=True)
+    counts = torch.bincount(idx, minlength=n)
+    return torch.segment_reduce(src[order], "sum", lengths=counts, axis=0,
+                                unsafe=True)
+
+
+def fixed_scatter_vertex_codes(codes, vert_idx, cap):
+    """ops/sparse_conv.scatter_vertex_codes as a segment_sum."""
+    C = codes.shape[-1]
+    if vert_idx.dim() == 1:
+        return segment_sum(vert_idx, codes, cap + 1)[:cap]
+    B, nv = vert_idx.shape
+    offs = (torch.arange(B, device=vert_idx.device) * (cap + 1))[:, None]
+    out = segment_sum((vert_idx.long() + offs).reshape(-1),
+                      codes.expand(B, nv, C).reshape(B * nv, C),
+                      B * (cap + 1))
+    return out.reshape(B, cap + 1, C)[:, :cap]
+
+
+def fixed_hat_bwd(grad, sites, rows, pos, dtype, sorted_rows=None):
+    """ops/hat_kernel.hat_interp_level_bwd_plain with segment_sum in place
+    of its index_add_, under torch.use_deterministic_algorithms(True)
+    (sorted_rows, the kernel's sort, is not needed)."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        capS = sites.shape[0]
+        spad = torch.cat([sites.float(), torch.full(
+            (1, 3), 1e9, device=sites.device)], dim=0)
+        idx = rows.long()
+        rc = spad[idx]
+        tent = torch.clamp(
+            1.0 - (pos[:, :, None, :] - rc[:, None, :, :]).abs(), min=0.0)
+        hat = tent[..., 0] * tent[..., 1] * tent[..., 2]
+        if dtype == torch.bfloat16:
+            hat = hat.bfloat16().float()
+        d_rf = torch.bmm(hat.transpose(1, 2), grad.float())
+        C = grad.shape[-1]
+        return segment_sum(idx.reshape(-1), d_rf.reshape(-1, C),
+                           capS + 1)[:capS]
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
+@contextlib.contextmanager
+def fixed_sums(which):
+    """Swap the sums that `which` names (FIXED_SUMS) for their fixed-order
+    versions inside the with block: the names the render path calls them
+    by (models/latent_xyzc.scatter_vertex_codes, ops/hat_interp's
+    hat_interp_level_bwd) are rebound and restored after."""
+    from ..models import latent_xyzc
+    from ..ops import hat_interp
+    swaps = []
+    if which in ("codes", "both"):
+        swaps.append((latent_xyzc, "scatter_vertex_codes",
+                      fixed_scatter_vertex_codes))
+    if which in ("hat", "both"):
+        swaps.append((hat_interp, "hat_interp_level_bwd", fixed_hat_bwd))
+    old = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    try:
+        for m, n, f in swaps:
+            setattr(m, n, f)
+        yield
+    finally:
+        for m, n, f in old:
+            setattr(m, n, f)
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +437,11 @@ def main(argv=None):
     ap.add_argument("--modes", default="bfloat16,float32")
     ap.add_argument("--ckpt", default=None,
                     help="start the full scene from this checkpoint dir")
+    ap.add_argument("--fixed-sum", default="none", choices=FIXED_SUMS,
+                    help="swap these sums for fixed-order ones (eager "
+                    "runs only)")
     args = ap.parse_args(argv)
+    graph_runs = 0 if args.fixed_sum != "none" else args.graph_runs
     if args.ckpt is not None and args.scenes != "full":
         raise SystemExit("--ckpt holds the full scene only: --scenes full")
     if not torch.cuda.is_available():
@@ -359,8 +461,9 @@ def main(argv=None):
         todo = [n for n in names if mode == "bfloat16" or n != "config"]
         for name, settings, init, chains in scenes(dev, todo, mode,
                                                    args.ckpt):
-            eager = [[eager_run(dev, init, steps, settings) for _ in
-                      range(args.runs)] for steps, _, _ in chains]
+            with fixed_sums(args.fixed_sum):
+                eager = [[eager_run(dev, init, steps, settings) for _ in
+                          range(args.runs)] for steps, _, _ in chains]
             worst = {g: (0.0, "") for g in GROUPS}
             for runs in eager:
                 for g, w in spread(runs).items():
@@ -371,7 +474,7 @@ def main(argv=None):
             before = run_state(p0, bn0, opt0, [])
             del p0, bn0, opt0
             for (steps, disp, stale), runs in zip(chains, eager):
-                for r in range(args.graph_runs):
+                for r in range(graph_runs):
                     state = graph_run(dev, init, disp, settings)
                     groups, _ = check(state, runs[0], tol)
                     for g in GROUPS:
@@ -384,17 +487,18 @@ def main(argv=None):
                                 {k: v["ratio"] for k, v in groups.items()},
                                 leaf=path, leaf_ratio=ratio(dict(distances(
                                     bad, runs[0])[g])[path], tol[g]))
-                if stale is not None:
+                if stale is not None and graph_runs:
                     teeth, _ = check(graph_run(dev, init, stale, settings),
                                      runs[0], tol)
             print(json.dumps(dict(
                 scene=name, mode=mode, card=card, ckpt=args.ckpt,
-                eager_runs=args.runs,
+                fixed_sum=args.fixed_sum, eager_runs=args.runs,
                 chains=[len(s) for s, _, _ in chains],
                 spread={g: dict(worst=d, path=p)
                         for g, (d, p) in worst.items()},
-                tol=tol, margin=MARGIN, graph_runs=args.graph_runs,
-                graph_ratio_max={g: max(r) for g, r in ratios.items()},
+                tol=tol, margin=MARGIN, graph_runs=graph_runs,
+                graph_ratio_max={g: max(r, default=None)
+                                 for g, r in ratios.items()},
                 stale_copy=teeth, mutation_ratio=faults,
                 stale_copy_worst_ratio=None if teeth is None else max(
                     v["ratio"] for v in teeth.values()))), flush=True)

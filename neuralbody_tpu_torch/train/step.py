@@ -136,9 +136,10 @@ def graphed(device, batches, opt):
     """Whether a dispatch of `batches` under `opt` replays a CUDA graph:
     on the card, for latent_xyzc's hat batches (they carry hat_sort) under
     Adam, whose moments and per-step scalars the graph reads. Every other
-    dispatch (the CPU, the NeRF baseline's batches, RAdam and SGD) runs
-    train_steps' eager loop: those paths have no graph yet (ROADMAP.md
-    section 1, item 13)."""
+    dispatch (the CPU, the NeRF baseline's batches, the T-pose variant's
+    batches, which carry no hat plan, RAdam and SGD) runs train_steps'
+    eager loop: those paths have no graph yet (ROADMAP.md section 1, item
+    13)."""
     return (device.type == "cuda" and "hat_sort" in batches
             and isinstance(opt, Adam))
 

@@ -6,8 +6,7 @@ signature ``loss_fn(params, batch, settings, generator=None) -> (loss,
 (ret, new_bn, stats))``. The render function is recovered from the
 settings' type (renderer/dispatch.py), so the families share the generic
 loss in train/step.py, which adds the NeRF baseline's rgb0 term when the
-render returns it. "tpose" is registered as in the JAX package; its render
-raises until the T-pose family is ported.
+render returns it. "tpose" is registered as in the JAX package.
 """
 from __future__ import annotations
 

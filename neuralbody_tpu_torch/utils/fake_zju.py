@@ -162,3 +162,25 @@ def make_fake_zju(root, n_frames=3, n_cams=3, hw=64, n_verts=400, seed=0,
     np.save(f"{root}/annots.npy", {"cams": cams, "ims": ims},
             allow_pickle=True)
     return root
+
+
+def add_fake_warping(root, n_frames=3, n_verts=400, seed=0,
+                     ptot_vsize=0.04, pad=0.05):
+    """T-pose fixtures on top of make_fake_zju (same seed): tvertices.npy
+    and warping/{i}.npz, the arrays of tests/fake_data.add_fake_warping.
+    The fake 'SMPL' pose is the rigid Rh/Th only, so in the SMPL frame the
+    posed body is the template, an identity warp: ptot_pts equals the
+    posed grid itself and tbounds == pbounds. A warp that is not the
+    identity: tools/prepare_warping.write_synthetic_warping."""
+    base = ellipsoid_vertices(n_verts, radii=(0.3, 0.8, 0.15), seed=seed)
+    np.save(f"{root}/tvertices.npy", base.astype(np.float32))
+
+    os.makedirs(f"{root}/warping", exist_ok=True)
+    tb = np.stack([base.min(0) - pad, base.max(0) + pad]).astype(np.float32)
+    axes = [np.arange(tb[0, a], tb[1, a] + ptot_vsize, ptot_vsize)
+            for a in range(3)]
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).astype(np.float32)
+    for i in range(n_frames):
+        np.savez_compressed(f"{root}/warping/{i}.npz",
+                            ptot_pts=grid, pbounds=tb, tbounds=tb)
+    return root

@@ -31,6 +31,7 @@ import neuralbody_tpu_torch.train  # noqa: F401
 import neuralbody_tpu_torch.visualizers  # noqa: F401
 from neuralbody_tpu_torch import config as t_cfg
 from neuralbody_tpu_torch.renderer.renderer import RenderSettings
+from neuralbody_tpu_torch.renderer.tpose_renderer import TposeRenderSettings
 from neuralbody_tpu_torch.renderer.volume_renderer import NerfRenderSettings
 from neuralbody_tpu_torch.train import step as t_step
 
@@ -43,7 +44,8 @@ IDS = [os.path.relpath(p, REPO) for p in ALL_CONFIGS]
 MODES = ["vis_novel_view", "vis_novel_pose", "vis_rotate_smpl", "vis_mesh"]
 # a duck-typed dataset: the factories read only dataset.geo
 DATASET = SimpleNamespace(geo=SimpleNamespace(
-    out_sh=(224, 384, 96), site_caps=(8192, 6144, 3072, 1024, 256)))
+    out_sh=(224, 384, 96), site_caps=(8192, 6144, 3072, 1024, 256)),
+    ptot_shape=(37, 96, 26))   # the T-pose family's warped grid
 
 
 def _write(tmp_path, name, text):
@@ -130,9 +132,9 @@ class TestRegistry:
         assert "widget" in t_cfg.registered("thing")
 
     @pytest.mark.parametrize("kind,name", [
-        ("network", "tpose_xyzc"), ("model_static", "tpose_xyzc"),
-        ("renderer", "tpose_renderer"),
-        ("visualizer", "nope"), ("dataset", "tpose"),
+        ("network", "nope"), ("model_static", "nope"),
+        ("renderer", "nope"),
+        ("visualizer", "nope"), ("trainer", "nope"),
         ("dataset", "nope"), ("evaluator", "nope"),
         ("thing", "nope")])
     def test_unregistered_names_raise(self, kind, name):
@@ -140,16 +142,19 @@ class TestRegistry:
             t_cfg.resolve(kind, name)
 
     def test_the_port_registers_what_it_has(self):
-        want = {"network": ["latent_xyzc", "nerf", "nerf_mesh"],
-                "model_static": ["latent_xyzc", "nerf", "nerf_mesh"],
+        want = {"network": ["latent_xyzc", "nerf", "nerf_mesh",
+                            "tpose_xyzc"],
+                "model_static": ["latent_xyzc", "nerf", "nerf_mesh",
+                                 "tpose_xyzc"],
                 "renderer": ["if_clight_renderer", "if_clight_renderer_mmsk",
                              "if_clight_renderer_msk", "if_mesh_renderer",
-                             "volume_mesh_renderer", "volume_renderer"],
+                             "tpose_renderer", "volume_mesh_renderer",
+                             "volume_renderer"],
                 "trainer": ["if_nerf_clight", "nerf", "tpose"],
                 "dataset": ["monocular", "monocular_demo", "monocular_mesh",
                             "multi_view", "multi_view_demo",
                             "multi_view_mesh", "multi_view_perform",
-                            "rotate_smpl"],
+                            "rotate_smpl", "tpose"],
                 "evaluator": ["if_nerf", "if_nerf_mesh", "neural_volume"],
                 "visualizer": ["if_nerf", "if_nerf_demo", "if_nerf_mesh",
                                "if_nerf_perform", "if_nerf_test"]}
@@ -209,10 +214,12 @@ def test_factories_build_the_jax_settings(path, monkeypatch):
     tr = t_cfg.build("renderer", tcfg.renderer_module, tcfg, ts)
     jr = j_cfg.build("renderer", jcfg.renderer_module, jcfg, js)
     assert type(tr).__name__ == type(jr).__name__
-    assert isinstance(tr, (RenderSettings, NerfRenderSettings))
+    assert isinstance(tr, (RenderSettings, NerfRenderSettings,
+                           TposeRenderSettings))
     want = _fields(jr)
     if isinstance(tr, RenderSettings):
         assert want.pop("hat_plan") is None     # the device planner's
+    if isinstance(tr, (RenderSettings, TposeRenderSettings)):
         assert want["model"]["encoder"].pop("use_pallas") is False
     assert _fields(tr) == want
     if "trainer_module" in tcfg:

@@ -5,8 +5,9 @@ name in a torch.profiler trace. Skips where no NVIDIA GPU is present; run on
 the card with `python -m pytest --noconftest tests/test_torch_graph_cuda.py
 -q`.
 
-Tolerances: the hat backward's float atomics and index_add_'s change order
-from run to run, so eager runs of the same steps differ. A graph's run is
+Tolerances: the hat backward's float atomics (measured with them; the
+backward sums in one fixed order now) and index_add_'s change order from
+run to run, so eager runs of the same steps may differ. A graph's run is
 held against one eager run of the same steps from the same state, per leaf
 (the losses, every parameter, Adam moment and BN running stat) by the L2
 distance ||g - e|| over the group's scale, the largest max(||g_l||,

@@ -14,7 +14,7 @@ card).
 import pytest
 import torch
 
-from chip_smoke import GRAPH_TOL
+from chip_smoke import GRAPH_TOL, TRAINED_TOL
 from neuralbody_tpu_torch.tools import graph_noise
 from test_torch_graph_cuda import TOL as SMALL_TOL
 
@@ -109,3 +109,63 @@ def test_a_zero_tolerance_reads_zero_or_inf(states):
     assert groups["mu"]["ratio"] == float("inf")
     assert graph_noise.ratio(0.0, 0.0) == 0.0
     assert graph_noise.ratio(3e-4, 1e-4) == pytest.approx(3.0)
+
+
+def test_the_trained_state_tolerance(states):
+    """chip_smoke.py's TRAINED_TOL (graph_vs_eager_trained: graphed bf16
+    steps from a trained checkpoint) passes a state against itself and
+    fails it with mu's largest leaf negated; it is looser than GRAPH_TOL
+    in every group (trained weights spread eager runs wider), which stays
+    as it was."""
+    before, after = states
+    groups, over = graph_noise.check(after, after, TRAINED_TOL)
+    assert over == [] and all(v["ratio"] == 0 for v in groups.values())
+    _, path, bad = graph_noise.mutations(after, before)["mu"]
+    groups, over = graph_noise.check(bad, after, TRAINED_TOL)
+    assert [p for p, _, _ in over] == [path]
+    assert groups["mu"]["ratio"] > 1
+    assert all(TRAINED_TOL[g] > GRAPH_TOL[g] for g in graph_noise.GROUPS)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_fixed_order_codes_sum_equals_scatter_vertex_codes(batched):
+    """tools/graph_noise.py --fixed-sum codes: the vertex codes' segment
+    sum equals index_add_'s (on the CPU both add in one order; at f32
+    rounding where a row has three addends or more)."""
+    from neuralbody_tpu_torch.ops.sparse_conv import scatter_vertex_codes
+    g = torch.Generator().manual_seed(0)
+    codes = torch.randn(60, 16, generator=g)
+    idx = torch.randint(0, 12, (3, 60) if batched else (60,), generator=g)
+    torch.testing.assert_close(
+        graph_noise.fixed_scatter_vertex_codes(codes, idx, 11),
+        scatter_vertex_codes(codes, idx, 11), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fixed_order_hat_backward_equals_the_plain_version(dtype):
+    from neuralbody_tpu_torch.ops import hat_kernel
+    g = torch.Generator().manual_seed(1)
+    sites = torch.randint(0, 8, (20, 3), generator=g).int()
+    rows = torch.randint(0, 21, (4, 6), generator=g).int()   # 20: sentinel
+    pos = torch.rand(4, 16, 3, generator=g) * 8
+    grad = torch.randn(4, 16, 32, generator=g)
+    torch.testing.assert_close(
+        graph_noise.fixed_hat_bwd(grad, sites, rows, pos, dtype),
+        hat_kernel.hat_interp_level_bwd_plain(grad, sites, rows, pos, dtype),
+        rtol=1e-6, atol=1e-6)
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+def test_fixed_sums_swap_the_render_paths_names_and_restore_them():
+    from neuralbody_tpu_torch.models import latent_xyzc
+    from neuralbody_tpu_torch.ops import hat_interp
+    codes, bwd = (latent_xyzc.scatter_vertex_codes,
+                  hat_interp.hat_interp_level_bwd)
+    with graph_noise.fixed_sums("both"):
+        assert latent_xyzc.scatter_vertex_codes is \
+            graph_noise.fixed_scatter_vertex_codes
+        assert hat_interp.hat_interp_level_bwd is graph_noise.fixed_hat_bwd
+    with graph_noise.fixed_sums("hat"):
+        assert latent_xyzc.scatter_vertex_codes is codes
+    assert (latent_xyzc.scatter_vertex_codes,
+            hat_interp.hat_interp_level_bwd) == (codes, bwd)

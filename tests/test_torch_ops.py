@@ -298,6 +298,33 @@ def test_hat_level_wrapper_writes_column_slice():
     assert (buf[..., :8] == -7).all() and (buf[..., 24:] == -7).all()
 
 
+def test_sort_rows_gives_each_level_its_run():
+    """ops/hat_kernel.sort_rows, the backward's one sort of every level's
+    row ids: level l's entries are one run of the sorted keys, its ids
+    (clamped to [-1, capS]) plus key_base in order, each entry's flat index
+    plus order_base, equal ids in flat-index order (a stable sort)."""
+    from neuralbody_tpu_torch.ops.hat_kernel import sort_rows
+    g = torch.Generator().manual_seed(0)
+    levels = [(torch.randint(0, 41, (5, 7), generator=g, dtype=torch.int32),
+               40),
+              (torch.randint(0, 11, (5, 3), generator=g, dtype=torch.int32),
+               10)]
+    levels[1][0][0, 0] = 99              # past the sentinel: clamped
+    out = sort_rows(levels)
+    start = 0
+    for (rows, capS), (keys, order, key_base, order_base) in zip(levels,
+                                                                 out):
+        flat = rows.reshape(-1).clamp(-1, capS)
+        assert order_base == start and keys.numel() == flat.numel()
+        idx = order - order_base
+        assert torch.equal(keys - key_base, flat[idx])
+        assert sorted(idx.tolist()) == list(range(flat.numel()))
+        pairs = list(zip((keys - key_base).tolist(), idx.tolist()))
+        assert pairs == sorted(pairs)
+        start += flat.numel()
+    assert out[1][2] == out[0][2] + 40 + 2
+
+
 # -- hull masks --------------------------------------------------------------
 
 def _hull_inputs(rng, V=2, HW=(24, 32)):
@@ -368,7 +395,7 @@ def test_port_imports_no_jax():
         "[importlib.import_module(m) for m in mods]\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'neuralbody_tpu')]\n"
-        "assert len(mods) >= 77, mods\n"
+        "assert len(mods) >= 86, mods\n"
         "new = {p.__name__ + '.' + m for m in "
         "('ops.conv_kernel', 'ops.grid_sample', 'ops.ray_ops', "
         "'ops.dense_kernel', 'ops.sample_pdf', 'models.nerf', "
@@ -388,7 +415,10 @@ def test_port_imports_no_jax():
         "'utils.voxel_grid', 'utils.vis_skeleton', 'visualizers', "
         "'visualizers.visualizers', 'tools.convergence_run', "
         "'tools.novel_pose_eval', 'tools.dataset_tools', "
-        "'tools.render_mesh')}\n"
+        "'tools.render_mesh', 'utils.smpl', 'utils.surface', "
+        "'ops.blend', 'models.tpose_xyzc', 'renderer.tpose_renderer', "
+        "'datasets.tpose_dataset', 'tools.prepare_warping', "
+        "'tools.extract_vertices', 'tools.hat_bwd_cost')}\n"
         "assert new <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
