@@ -82,7 +82,19 @@ through their entry points:
     T-pose encoder's 17 layer shapes, forward and dx; "tpose_render", the
     1024-ray render against the port's CPU render; "tpose_train", the
     first step's gradients against the CPU's, an eager step timed and its
-    parts timed apart, Trainer fit and validate.
+    parts timed apart, Trainer fit and validate;
+  * the hat plan built on the card ("device_plan"): plan_hat_device on the
+    card against the CPU, bit for bit; the render from a device plan
+    against the host plan's; the 313 config with cfg.tpu.hat_plan_device
+    (graphed, banked) beside the host-planned config, its warm epoch
+    against eager steps at CONFIG_TOL;
+  * the multi-process layer: "dist_two_ranks", two ranks of the sharded
+    steps on the one card (tools/dist_check.py; NCCL, or gloo on CUDA
+    tensors where NCCL refuses two ranks on one device) against one
+    process at DIST_TOL, the ranks bit for bit, ShardedEval of 8192 rays
+    against eval_step, batch mode's synced BatchNorm over two frames;
+    "dist_entry", the port's train_net under torchrun's variables (NCCL,
+    one rank) for one epoch and a validate.
 
 Each kernel (the hat contraction forward, with its cell lookup and with
 its scan, and backward, its sums in one fixed order; the gather-fused sparse conv on the tensor cores
@@ -246,6 +258,22 @@ NERF_MESH_TH = 1.0        # run_nerf: the iso of an 8-step NeRF, whose
 TRAINED_TOL = {"params": 2.13e-3, "mu": 7.75e-2, "nu": 5.15e-2,
                "bn": 1.72e-3, "loss": 1.14e-3}
 TRAINED_GRAPH_RUNS = 2    # graphed runs held against the one eager run
+DIST_WORLD = 2            # dist_two_ranks: ranks on the one card
+# dist_two_ranks: the sharded runs' group distance from one process
+# (tools/graph_noise.distances after tools/dist_check.STEPS steps), by
+# precision, measured with tools/dist_check.py at this size in five calls
+# on an H100 80GB HBM3 at 700 W (PERF.md section 2). f32: 4x the largest
+# one-process spread (the hat backward's float atomics), the loss, whose
+# spread was 0, at 4 units of f32's last place. bf16 is deterministic (its
+# one-process runs bit-equal, its sharded distances the same to the digit
+# in all five calls): 2x the larger of the two layouts' distances. The
+# faults dist_check plants (the parameter leaf that moved farthest left
+# stale; the gradients' all_reduce dropped) must land over these in both
+# layouts.
+DIST_TOL = {"f32": {"params": 1.25e-4, "mu": 1.26e-4, "nu": 3.24e-5,
+                    "bn": 7.4e-6, "loss": 4.8e-7},
+            "bf16": {"params": 6.64e-4, "mu": 3.32e-3, "nu": 6.36e-3,
+                     "bn": 2.58e-4, "loss": 3.66e-6}}
 TPOSE_CONFIG = "configs/tpose/tpose_313.yaml"
 TPOSE_VSIZE = 0.02        # the posed warping grid's voxel (the YAML's)
 TPOSE_POSE_STD = 0.02     # the synthetic SMPL poses of its frames (radians;
@@ -275,7 +303,7 @@ def emit(**kw):
     print(json.dumps(dict(kw, at_s=time.perf_counter() - START)), flush=True)
 
 
-def median_ms(torch, fn, runs=25, warmup=3):
+def median_ms(torch, fn, runs=11, warmup=3):
     """Median device time of fn() over `runs` CUDA-event timings, after
     `warmup` calls. A device-side spin before each timed region keeps the
     card busy while the host enqueues fn's launches, so the interval holds
@@ -818,6 +846,319 @@ def fresh_bench(torch, card, pool):
         raise AssertionError(f"fresh bench: {fresh}")
     torch.cuda.empty_cache()
     return fresh
+
+
+def plan_spec(hs, out_sh, site_caps):
+    """The loader's static plan sizes for a plan built on the device
+    (datasets/loader.py _derive_hat_static with plan_device): n_groups and
+    rows_caps from the host plan's with their margins, seg_caps from its
+    d-spans."""
+    from neuralbody_tpu_torch.ops.device_plan import DevicePlanSpec
+    return DevicePlanSpec(
+        out_sh=tuple(out_sh), site_caps=tuple(site_caps), group_size=128,
+        tile=(4, 8), n_groups=-(-int(hs["n_groups"] * 1.08) // 8) * 8,
+        rows_caps=tuple(-(-int(c * 1.15) // 32) * 32
+                        for c in hs["rows_caps"]),
+        seg_caps=tuple(-(-int(c * 1.25) // 8) * 8 for c in hs["d_spans"]))
+
+
+def device_plan(torch, dev, card, rbatch, rstatic, ds, pool, failed):
+    """The hat plan built on the card (ops/device_plan.py, the 313 config's
+    cfg.tpu.hat_plan_device). plan_hat_device on the card against the same
+    function on the CPU at the full-width batch's voxel coordinates (perm
+    and rows bit for bit, no overflow), timed; the render of `rbatch` (1024
+    rays, no plan) from a device plan against the host plan's render of the
+    same rays at the same depths, both modes, at RENDER_TOL; then the 313
+    config (bf16, banked, `pool`) with the plan on the card beside the
+    host-planned one: a warm epoch of two dispatches each (the derivation
+    and the capture; the device-planned one held against eager steps on
+    its batches at CONFIG_TOL), then epochs of two dispatches in ABBA
+    order: dispatch ms, rays/s, bytes a dispatch; and the host ms of a
+    batch made without and with its plan. Returns the kernels' launches
+    over the device-planned runs."""
+    import numpy as np
+
+    from neuralbody_tpu_torch.datasets.loader import (
+        make_data_loader, produce_batch)
+    from neuralbody_tpu_torch.models import latent_xyzc as lx
+    from neuralbody_tpu_torch.models.sparse_conv_net import EncoderStatic
+    from neuralbody_tpu_torch.ops.device_plan import plan_hat_device
+    from neuralbody_tpu_torch.ops.hat_interp import prepare_hat_batch
+    from neuralbody_tpu_torch.renderer.renderer import (RenderSettings,
+                                                        render_rays)
+    from neuralbody_tpu_torch.tools import graph_noise
+    from neuralbody_tpu_torch.train.fresh import synthetic_cfg, with_geom
+    from neuralbody_tpu_torch.train.graphs import WARMUP
+    from neuralbody_tpu_torch.train.step import eval_step, train_steps
+    from neuralbody_tpu_torch.utils.platform import to_device
+
+    # (a) the plan: card against CPU on one frame's voxel coordinates
+    vs = (VOX,) * 3
+    hat, hs = prepare_hat_batch(rbatch, rstatic["out_sh"],
+                                rstatic["site_caps"], vs, N_SAMPLES,
+                                d_spans=True)
+    spec = plan_spec(hs, rstatic["out_sh"], rstatic["site_caps"])
+    pts = (rbatch["ray_o"][0][:, None, :] + rbatch["ray_d"][0][:, None, :]
+           * hat["z_vals"][0][..., None]).reshape(-1, 3)
+    rev = [2, 1, 0]
+    dhw = (((pts - rbatch["Th"][0].reshape(1, 3)) @ rbatch["R"][0])[:, rev]
+           - rbatch["bounds"][0][0][rev]) / np.float32(VOX)
+    dhw = torch.from_numpy(dhw.astype(np.float32))
+    geom = {k: v[0] for k, v in rbatch["geom"].items()}
+    cpu = plan_hat_device(dhw, to_device(geom, "cpu"), spec)
+    gdev, ddev = to_device(geom, dev), dhw.to(dev)
+    card_plan = plan_hat_device(ddev, gdev, spec)
+    equal = (torch.equal(cpu[0], card_plan[0].cpu())
+             and all(torch.equal(cpu[1][l], card_plan[1][l].cpu())
+                     for l in cpu[1]))
+    overflow = (float(cpu[2]), float(card_plan[2]))
+    plan_ms = median_ms(torch, lambda: plan_hat_device(ddev, gdev, spec),
+                        runs=20)
+
+    # (b) the render from a device plan against the host plan's
+    params, _ = lx.init(torch.Generator().manual_seed(SEED),
+                        num_train_frame=1,
+                        nv=rbatch["geom"]["vert_idx"].shape[-1], device=dev)
+    params["alpha_fc"]["b"] += ALPHA_BIAS
+    render_err = {}
+    for mode in ("bf16", "f32"):
+        s = RenderSettings(
+            model=lx.ModelStatic(encoder=EncoderStatic(
+                out_sh=rstatic["out_sh"], site_caps=rstatic["site_caps"],
+                compute_dtype="bfloat16" if mode == "bf16" else "float32")),
+            voxel_size=vs, n_samples=N_SAMPLES, perturb=False,
+            hat_rows_caps=tuple(hs["rows_caps"]))
+        want = eval_step(params, hat, s, device=dev)
+        with torch.no_grad():
+            got, _ = render_rays(params, to_device(rbatch, dev),
+                                 s._replace(hat_plan=spec), train=True)
+        render_err[mode] = max(
+            ((got[k] - want[k]).abs().max()
+             / want[k].abs().max().clamp(min=1e-30)).item()
+            for k in ("rgb_map", "acc_map", "depth_map"))
+        if not render_err[mode] <= RENDER_TOL[mode]:
+            failed.append(f"device_plan render {mode}: {render_err[mode]} "
+                          f"over {RENDER_TOL[mode]}")
+    del params
+
+    # (c) the config path with the plan on the card, beside the host plan
+    G = CONFIG_G
+    runs, warm = {}, {}
+    counted = {}
+    for way in ("host", "device"):
+        c = synthetic_cfg(ds, "bfloat16", G, 2 * G)
+        c.tpu.hat_plan_device = way == "device"
+        run = graph_noise.config_run(c, ds, dev, pool)
+        reset_kernel_counts()
+        warm[way] = list(run.loader(0))
+        losses = torch.cat([st["loss"] for st in run.epoch(
+            0, loader=warm[way])])
+        if way == "device":
+            counted = kernel_counts(*HAT_CONV, "conv_dx")
+            graph_state = graph_noise.run_state(run.params, run.bn_stats,
+                                                run.opt, losses)
+        runs[way] = (run, c)
+    timed = {"host": [], "device": []}
+    for r, way in enumerate(("host", "device", "device", "host")):
+        run, c = runs[way]
+        losses, ms, epoch_s = timed_epoch(run.epoch(1 + r))
+        timed[way].append(dict(dispatch_ms=ms, epoch_s=epoch_s,
+                               rays_per_s=len(ms) * G * ds.n_rand / epoch_s))
+    rows = {}
+    for way, (run, c) in runs.items():
+        rows[way] = dict(
+            h2d_bytes_per_dispatch=run.staging.set_bytes,
+            staging_leaves=run.staging.leaves,
+            captures=(run.opt.step_graph.captures
+                      if run.opt.step_graph else 0),
+            hat_state={k: list(v) if isinstance(v, tuple) else v
+                       for k, v in run.hat_state.items()},
+            dispatch_ms_median=statistics.median(
+                x for t in timed[way] for x in t["dispatch_ms"]),
+            rays_per_s=[t["rays_per_s"] for t in timed[way]])
+    # the device-planned warm epoch against eager steps on its batches
+    run, c = runs["device"]
+    settings = run._settings({})
+    eager_run = graph_noise.config_run(c, ds, dev, bank=False)
+    eager_run.generator.manual_seed(eager_run.seed)   # the epoch-0 draws
+    bn, st = train_steps(eager_run.params, eager_run.bn_stats,
+                         eager_run.opt,
+                         [with_geom(b, m, pool.geom_cache)
+                          for b, m in warm["device"]], settings, device=dev,
+                         generator=eager_run.generator)
+    eager = graph_noise.run_state(eager_run.params, bn, eager_run.opt,
+                                  st["loss"])
+    check, over = graph_noise.check(graph_state, eager, CONFIG_TOL)
+    # (d) a batch's host ms with its plan and without (the loader's thread)
+    host_ms = {}
+    loader = make_data_loader(c, "train", dataset=ds, epoch=1,
+                              hat_state=run.hat_state)
+    for way, spec_ in (("host", loader._spec()), ("device", None)):
+        ms = []
+        for bi in range(CONFIG_HOST_BATCHES):
+            t0 = time.perf_counter()
+            produce_batch(ds, loader.indices, bi, 1, ds.n_rand, spec_, 1,
+                          loader.seed0)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        host_ms[way] = statistics.median(ms)
+    del runs, run, eager_run
+    torch.cuda.empty_cache()
+    want = tuple((1 + WARMUP) * G * n
+                 for n in (4, 4, 2 * CONV_LAYERS, CONV_LAYERS))
+    emit(phase="device_plan", plan_bit_equal=equal, overflow=overflow,
+         spec=spec._asdict(), plan_ms_per_step=plan_ms,
+         render_err=render_err, render_tol=RENDER_TOL, config=rows,
+         timed=timed, host_ms_per_batch=host_ms,
+         launches_at_capture=counted, launches_expected=want,
+         config_vs_eager=dict(tol=CONFIG_TOL, groups=check, over=len(over)),
+         card=card)
+    if not equal or overflow != (0.0, 0.0):
+        failed.append(f"device_plan: card plan equal {equal}, overflow "
+                      f"{overflow}")
+    if (counted != want or rows["device"]["captures"] != 1
+            or not rows["device"]["h2d_bytes_per_dispatch"]
+            < rows["host"]["h2d_bytes_per_dispatch"]):
+        failed.append(f"device_plan config path: launches {counted} (want "
+                      f"{want}), {rows}")
+    if over:
+        failed.append(f"device_plan against eager steps: {over[:5]}")
+    return counted
+
+
+def dist_two_ranks(torch, card, failed):
+    """Two ranks of the sharded steps on the one card
+    (neuralbody_tpu_torch/tools/dist_check.py, full width): NCCL when it
+    takes two ranks on one device, else gloo on CUDA tensors. Held: the
+    ranks' parameters bit for bit; each group of the sharded run's state
+    and of batch mode's within DIST_TOL of one process's, and both planted
+    faults over it in both layouts; ShardedEval of 8192 rays within
+    RENDER_TOL of eval_step; every rank's hat and conv launches. Returns
+    each kernel's launches over both ranks' sharded steps, by mode."""
+    from neuralbody_tpu_torch.tools import dist_check
+    from neuralbody_tpu_torch.utils import cuda_build
+    out = os.path.join(cuda_build.BUILD_DIR, "dist_check")
+    t0 = time.perf_counter()
+    refused = None
+    # NCCL has refused two ranks on one device in every version tried: its
+    # attempt runs beside gloo's, and gloo's result stands where it refuses
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        gloo = pool.submit(dist_check.launch, DIST_WORLD, "gloo", "full",
+                           out, timeout=900)
+        try:
+            results, _ = dist_check.launch(DIST_WORLD, "nccl", "full",
+                                           out + "_nccl", timeout=240)
+        except (RuntimeError, subprocess.TimeoutExpired) as e:
+            lines = [x for x in str(e).splitlines()
+                     if "Duplicate GPU" in x or "ncclInvalidUsage" in x]
+            if not lines:
+                raise
+            refused = lines[0].strip()[:300]
+            results = None
+        gloo_results, _ = gloo.result()
+    results = results or gloo_results
+    seconds = time.perf_counter() - t0
+    r0 = results[0]
+    want = {"hat_fwd": 4 * dist_check.STEPS, "hat_bwd": 4 * dist_check.STEPS,
+            "conv": 2 * CONV_LAYERS * dist_check.STEPS,
+            "conv_dx": CONV_LAYERS * dist_check.STEPS}
+    rows, launches = {}, {}
+    for mode, row in r0["modes"].items():
+        same = all(r["modes"][mode][k] == row[k] for r in results
+                   for k in ("digest", "eval_digest", "batch_digest"))
+        tol = DIST_TOL[mode]
+        ratios = {g: row["vs_single"][g] / tol[g] for g in tol}
+        batch_ratios = {g: row["batch_vs_single"][g] / tol[g] for g in tol}
+        # each planted fault's worst group over its tolerance: must be > 1
+        faults = {f"{lay}/{name}": max(dist[g] / tol[g] for g in tol)
+                  for lay, key in (("rays", "faults"),
+                                   ("batch", "batch_faults"))
+                  for name, dist in row[key].items() if name != "stale_path"}
+        launches[mode] = {k: sum(r["modes"][mode]["launches"][k]
+                                 for r in results) for k in want}
+        rows[mode] = dict(
+            ranks_bit_equal=same, loss=row["loss"],
+            single_loss=row["single_loss"], vs_single=row["vs_single"],
+            spread=row["spread"], ratio_to_tol=ratios,
+            batch_vs_single=row["batch_vs_single"],
+            batch_ratio_to_tol=batch_ratios, fault_ratio_to_tol=faults,
+            stale_path=row["faults"]["stale_path"], eval_err=row["eval_err"],
+            step_ms=[r["modes"][mode]["step_ms"] for r in results],
+            collective_ms=[r["modes"][mode]["collective_ms"]
+                           for r in results],
+            collective_bytes=row["collective_bytes"],
+            collective_calls=row["collective_calls"],
+            launches=[r["modes"][mode]["launches"] for r in results])
+        if (not same or max(ratios.values()) > 1
+                or max(batch_ratios.values()) > 1
+                or not min(faults.values()) > 1
+                or not row["eval_err"] <= RENDER_TOL[mode]
+                or any(r["modes"][mode]["launches"] != want
+                       for r in results)):
+            failed.append(f"dist_two_ranks {mode}: {rows[mode]}")
+    emit(phase="dist_two_ranks", backend=r0["backend"], nccl_refused=refused,
+         world=DIST_WORLD, n_groups=r0["n_groups"], seconds=seconds,
+         steps=dist_check.STEPS, tol=DIST_TOL, launches_expected=want,
+         modes=rows, card=card)
+    return launches
+
+
+def dist_entry(torch, card, root, work, failed):
+    """The port's train_net under torchrun's variables (RANK=0
+    WORLD_SIZE=1 NB_DIST_AUTO=1, NCCL) over the fake ZJU sequence at
+    `root`: one epoch of one dispatch (bf16, G = 8, the loader's thread)
+    and a validate, in a process of its own. Held: exit 0, the group it
+    formed, latest.ckpt written, a finite PSNR."""
+    import glob
+    import shutil
+    import socket
+
+    from neuralbody_tpu_torch.train.fresh import CONFIG_313
+    cwd = os.path.join(work, "dist_entry")
+    shutil.rmtree(cwd, ignore_errors=True)
+    os.makedirs(cwd)
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    data = []
+    for split in ("train", "test"):
+        data += [f"{split}_dataset.data_root", root,
+                 f"{split}_dataset.human", os.path.basename(root),
+                 f"{split}_dataset.ann_file", f"{root}/annots.npy"]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("NB_", "LOCAL_RANK"))}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env.update(RANK="0", WORLD_SIZE="1", NB_DIST_AUTO="1",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port),
+               PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in [env.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "neuralbody_tpu_torch.train_net",
+           "--cfg_file", CONFIG_313, "training_view", "[0, 1, 2]",
+           "test.frame_sampler_interval", "1", *data,
+           "num_train_frame", str(TRAINER_FRAMES),
+           "tpu.compute_dtype", "bfloat16", "tpu.steps_per_dispatch", "8",
+           "train.num_workers", "0", "ep_iter", "8", "train.epoch", "1",
+           "exp_name", "dist_entry"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    group = [x for x in proc.stdout.splitlines()
+             if x.startswith("process group:")]
+    psnr = [float(x.split()[-1]) for x in proc.stdout.splitlines()
+            if x.startswith("psnr:")]
+    ckpts = sorted(os.path.relpath(p, cwd) for p in glob.glob(
+        os.path.join(cwd, "data", "trained_model", "**", "*.ckpt"),
+        recursive=True))
+    emit(phase="dist_entry", returncode=proc.returncode, seconds=seconds,
+         group=group, psnr=psnr, checkpoints=ckpts, card=card)
+    if (proc.returncode != 0
+            or group != ["process group: rank 0 of 1, backend nccl"]
+            or not any(p.endswith("latest.ckpt") for p in ckpts)
+            or not psnr or not all(math.isfinite(x) for x in psnr)):
+        failed.append(f"dist_entry: rc {proc.returncode}, group {group}, "
+                      f"psnr {psnr}, checkpoints {ckpts}: {text[-3000:]}")
 
 
 def kernel_counts(*names):
@@ -3579,6 +3920,9 @@ def main():
         config_counts, config_replay = config_path(
             torch, dev, card, cfg, ds, pool, failed)
         fresh = fresh_bench(torch, card, pool)
+        # the hat plan built on the card, on the same pool
+        plan_counts = device_plan(torch, dev, card, rbatch, static, ds, pool,
+                                  failed)
     finally:
         pool.shutdown()
 
@@ -3644,6 +3988,12 @@ def main():
     torch.cuda.empty_cache()
     tpose = tpose_family(torch, dev, card, root,
                          os.path.join(harness, "tpose"), failed)
+
+    # -- 6f. the multi-process layer: two ranks on the one card against one
+    # process, then train_net's bootstrap under torchrun's variables -------
+    torch.cuda.empty_cache()
+    dist_counts = dist_two_ranks(torch, card, failed)
+    dist_entry(torch, card, root, harness, failed)
 
     # -- 7. the kernels ---------------------------------------------------
     kernels = []
@@ -3766,6 +4116,24 @@ def main():
                  **{f"tpose_{x}": t.get(x) for x in (
                      "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                      "max_abs_err")})
+    # this slice's paths: both ranks' sharded steps (dist_two_ranks), and
+    # the config path's runs with the plan built on the card (bf16)
+    slice_counts = {"hat_interp_level": "hat_fwd",
+                    "hat_interp_level_bwd": "hat_bwd",
+                    "sparse_conv": "conv", "sparse_conv_dx": "conv_dx"}
+    for k in kernels:
+        base, _, mode = k["name"].partition("[")
+        key, mode = slice_counts.get(base), mode.rstrip("]")
+        dist_n = plan_n = None
+        if key is not None:
+            dist_n = dist_counts[mode][key]
+            if key == "conv":      # the conv counter holds its dx too
+                dist_n -= dist_counts[mode]["conv_dx"]
+            if mode == "bf16":
+                i = ("hat_fwd", "hat_bwd", "conv", "conv_dx").index(key)
+                plan_n = plan_counts[i] - (plan_counts[3] if i == 2 else 0)
+        k.update(dist_two_ranks_launches=dist_n,
+                 device_plan_launches=plan_n)
     if failed:
         raise AssertionError("; ".join(failed))
     print(json.dumps({"kernels": kernels}), flush=True)

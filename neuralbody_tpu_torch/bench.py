@@ -190,9 +190,13 @@ def measure_broadcast(n_rays=N_RAYS, n_iters=20, pre_expand=True,
 
 
 def measure_fresh(num_workers=2, n_disp=12, n_rays=N_RAYS, device=None,
-                  pool=None, dataset=None, n_samples=N_SAMPLES):
+                  pool=None, dataset=None, n_samples=N_SAMPLES,
+                  plan_device=False):
     """The production pipeline (see the module's docstring): rays/s over a
-    timed epoch of n_disp dispatches of G fresh batches.
+    timed epoch of n_disp dispatches of G fresh batches. plan_device=True
+    ships rays only and builds the hat plan on the card
+    (cfg.tpu.hat_plan_device, ops/device_plan.py), as bench.py's
+    plan_device does.
 
     pool: a started datasets/loader.WorkerPool to use (its dataset is the
     bench's; it is left running), else num_workers workers are started and
@@ -214,6 +218,7 @@ def measure_fresh(num_workers=2, n_disp=12, n_rays=N_RAYS, device=None,
     try:
         cfg = synthetic_cfg(dataset, "bfloat16", G, FRESH_WARM * G,
                             n_samples)
+        cfg.tpu.hat_plan_device = bool(plan_device)
         run = ConfigRun(cfg, dataset=dataset, pool=pool, device=device)
         for stats in run.epoch(0):
             pass

@@ -14,8 +14,9 @@ heavy frame-geometry tables are shipped once per (worker, frame) and cached
 parent-side, not re-pickled per batch. Where the JAX package differs:
 a worker or producer thread that raises makes the parent raise (the JAX
 pool waits for ever), the children are kept off the card by
-CUDA_VISIBLE_DEVICES="", and plan_device=True (the device planner) raises
-NotImplementedError.
+CUDA_VISIBLE_DEVICES="", and with plan_device=True (the plan built on the
+device) the seg_caps are sized by the groups' d-spans
+(DataLoader._derive_hat_static).
 """
 from __future__ import annotations
 
@@ -116,14 +117,15 @@ def _batch_seed(epoch, batch_idx, seed0=0):
     return (epoch * 1000003 + batch_idx * 7919 + seed0) % (2 ** 31 - 1)
 
 
-def apply_hat_spec(device, spec: HatSpec, seed):
+def apply_hat_spec(device, spec: HatSpec, seed, d_spans=False):
     from ..ops.hat_interp import prepare_hat_batch
     rng = np.random.RandomState(seed) if spec.perturb else None
     device, hs = prepare_hat_batch(
         device, spec.out_sh, spec.site_caps, spec.voxel_size,
         spec.n_samples, group_size=spec.group_size, tile=spec.tile,
         rows_caps=spec.rows_caps, seg_caps=spec.seg_caps,
-        n_groups=spec.n_groups, rng=rng, quantize_z=spec.quantize_z)
+        n_groups=spec.n_groups, rng=rng, quantize_z=spec.quantize_z,
+        d_spans=d_spans)
     return device, hs
 
 
@@ -320,13 +322,7 @@ class DataLoader:
         self.hat_cfg = hat_cfg
         # plan_device: batch 0 still derives the static plan caps via the
         # host planner (hat_state), but EMITTED batches carry only rays —
-        # the plan is built on device (ops/device_plan.py; the host->TPU
-        # payload is the fresh-path bottleneck, tools/probes/fresh_gap.py)
-        if plan_device:
-            raise NotImplementedError(
-                "plan_device=True (the hat plan built on the device, "
-                "cfg.tpu.hat_plan_device) is not ported yet: ROADMAP.md "
-                "section 1, item 11")
+        # the plan is built on the device (ops/device_plan.py)
         self.plan_device = plan_device
         self.static_margin = float(static_margin)
         self.hat_state = hat_state if hat_state is not None else {}
@@ -362,7 +358,15 @@ class DataLoader:
         max is far more stable than one batch (typ. spread ±3% across
         frames/views), so margins shrink from x1.3-1.5 on one batch to
         x1.08/x1.15 on the max. Overflow on a later batch still raises
-        with the raise-the-caps message (plan_hat_groups)."""
+        with the raise-the-caps message (plan_hat_groups).
+
+        With plan_device the seg_caps are sized by the most d-slices a
+        group spans (plan_hat_groups' d_spans), not by the compacted
+        segment counts the host planner ships: the device plan keeps one
+        segment a d-slice, empty ones included (ADVICE.md on
+        neuralbody_tpu/ops/device_plan.py:129; the JAX loader sizes them
+        by the compacted counts, and a wider group is clipped). Batch 0
+        is then emitted without a plan, as every later batch."""
         n_probe = min(probe_batches, len(self))
         maxima = None
         raw = meta = None
@@ -376,9 +380,10 @@ class DataLoader:
                 raw, meta = b_raw, b_meta
             _, hs = apply_hat_spec(
                 dict(b_raw), self._spec(),
-                _batch_seed(self.epoch, bi, self.seed0 + 1))
+                _batch_seed(self.epoch, bi, self.seed0 + 1),
+                d_spans=self.plan_device)
             cur = (hs["n_groups"],) + tuple(hs["rows_caps"]) + tuple(
-                hs["seg_caps"])
+                hs["d_spans"] if self.plan_device else hs["seg_caps"])
             maxima = cur if maxima is None else tuple(
                 max(a, b) for a, b in zip(maxima, cur))
         ng, rows, segs = maxima[0], maxima[1:5], maxima[5:]

@@ -46,6 +46,9 @@ class EncoderStatic(NamedTuple):
     out_sh: tuple    # (D, H, W), multiples of 32
     site_caps: tuple  # 5 ints
     compute_dtype: str = "float32"
+    # None, or the BatchNorm's sum over the ranks (masked_batch_norm's
+    # total): set by parallel/train.py's batch-mode step
+    bn_sum: object = None
 
     def level_sh(self, lvl: int) -> tuple:
         return tuple(s // (2 ** lvl) for s in self.out_sh)
@@ -74,12 +77,14 @@ def init(gen):
     return params, stats
 
 
-def _conv_bn_relu(layer, feats, table, mask, up_table=None, xtri=None):
+def _conv_bn_relu(layer, feats, table, mask, up_table=None, xtri=None,
+                  bn_sum=None):
     """One (conv -> masked BN -> relu) layer over batched site lists.
 
     feats [B, S_in, C_in] -> [B, S_out, C_out] f32. BN statistics are joint
-    over the batch's active sites. up_table given => strided conv; xtri
-    given => w-triple packed submanifold conv.
+    over the batch's active sites (and the ranks' under bn_sum).
+    up_table given => strided conv; xtri given => w-triple packed
+    submanifold conv.
     """
     if xtri is not None:
         y = subm_conv_xtri(feats, layer["w"], *xtri)
@@ -88,7 +93,8 @@ def _conv_bn_relu(layer, feats, table, mask, up_table=None, xtri=None):
     else:
         y = subm_conv(feats, layer["w"], table)
     y, bn_batch = masked_batch_norm(
-        y, mask, layer["bn_scale"], layer["bn_bias"], eps=BN_EPS)
+        y, mask, layer["bn_scale"], layer["bn_bias"], eps=BN_EPS,
+        total=bn_sum)
     return torch.relu(y) * mask[..., None], bn_batch
 
 
@@ -134,7 +140,8 @@ def apply_sites(params, codes, geom, static: EncoderStatic):
             x, bn_batch = _conv_bn_relu(
                 params[name][i], x, tbl, masks[lvl],
                 up_table=up if is_down else None,
-                xtri=None if is_down else xtri_tabs(lvl))
+                xtri=None if is_down else xtri_tabs(lvl),
+                bn_sum=static.bn_sum)
             # conv accumulates f32, BN runs f32; only the STORED activation
             # (= next conv's gathered bytes) drops to compute_dtype
             x = x.to(dt)

@@ -60,7 +60,7 @@ def _level_scale(out_sh, lvl):
 
 def plan_hat_groups(dhw_pts, geom, out_sh, site_caps, group_size=128,
                     tile=(4, 8), rows_caps=None, n_groups=None,
-                    seg_caps=None, levels=(1, 2, 3, 4)):
+                    seg_caps=None, levels=(1, 2, 3, 4), d_spans=False):
     """Bucket points into spatial tiles, chunk each tile into point groups,
     and build per-(level, group) site-row SEGMENTS.
 
@@ -84,8 +84,12 @@ def plan_hat_groups(dhw_pts, geom, out_sh, site_caps, group_size=128,
       seg_a{l}    [ngrp, segcap_l]   segment start rows (padding 0)
       seg_cum{l}  [ngrp, segcap_l]   inclusive cumulative segment lengths
       rows_caps, seg_caps, n_groups  the static sizes used
+      d_spans     with d_spans=True (numpy), per level the most d-slices
+                  a group spans: a plan built on the device keeps one
+                  segment a d-slice, empty ones included, so its seg_caps
+                  are sized by these (datasets/loader.py)
     """
-    if (rows_caps is not None and n_groups is not None
+    if (rows_caps is not None and n_groups is not None and not d_spans
             and seg_caps is not None and tuple(levels) == (1, 2, 3, 4)):
         # the C++ planner, built at first use. A failed build raises with
         # the compiler's message: the numpy planner takes about ten times
@@ -143,7 +147,7 @@ def plan_hat_groups(dhw_pts, geom, out_sh, site_caps, group_size=128,
     g_max = grp_dhw.max(axis=1)
 
     out = {"perm": perm}
-    used_caps, used_seg_caps = [], []
+    used_caps, used_seg_caps, spans = [], [], []
     for li, lvl in enumerate(levels):
         sl = _level_scale(out_sh, lvl)
         sh_l = tuple(s // (2 ** lvl) for s in out_sh)
@@ -163,6 +167,7 @@ def plan_hat_groups(dhw_pts, geom, out_sh, site_caps, group_size=128,
         # 2D tiles -> one (d, h-range, all-w) segment per d-slice; 3D tiles
         # -> one (d, h, w-range) segment per (d, h) pair
         nd = int((d_hi - d_lo).max()) + 1 if ngrp else 1
+        spans.append(nd)
         ds = d_lo[:, None] + np.arange(nd, dtype=np.int64)[None, :]
         dvalid = ds <= d_hi[:, None]
         dsc = np.minimum(ds, d_hi[:, None])
@@ -218,6 +223,8 @@ def plan_hat_groups(dhw_pts, geom, out_sh, site_caps, group_size=128,
     out["rows_caps"] = tuple(used_caps)
     out["seg_caps"] = tuple(used_seg_caps)
     out["n_groups"] = n_groups
+    if d_spans:
+        out["d_spans"] = tuple(spans)
     return out
 
 
@@ -240,7 +247,7 @@ def expand_segments_np(seg_a, seg_cum, cap, sentinel):
 def prepare_hat_batch(batch, out_sh, site_caps, voxel_size, n_samples,
                       group_size=128, tile=(4, 8), rows_caps=None,
                       n_groups=None, seg_caps=None, rng=None,
-                      quantize_z=False):
+                      quantize_z=False, d_spans=False):
     """Augment a numpy batch with host-planned hat-interpolation fields.
 
     Adds (per batch element, stacked):
@@ -254,15 +261,16 @@ def prepare_hat_batch(batch, out_sh, site_caps, voxel_size, n_samples,
       hat_seg_cum{l} [B, ngrp, segcap_l]  inclusive cumulative lengths
 
     Returns (batch, hat_static) where hat_static = {rows_caps, seg_caps,
-    n_groups, group_size, tile}; rows_caps is also the device expansion
-    width (RenderSettings.hat_rows_caps).
+    n_groups, group_size, tile} (with d_spans=True also d_spans, the most
+    d-slices a group spans per level, from the numpy planner); rows_caps
+    is also the device expansion width (RenderSettings.hat_rows_caps).
     """
     B, R = batch["ray_o"].shape[:2]
     vs = np.asarray(voxel_size, np.float32)
     rev = [2, 1, 0]
     sort_dt = np.uint16 if R * n_samples <= 65536 else np.int32
 
-    zs, zqs, sorts, seg_acc = [], [], [], None
+    zs, zqs, sorts, seg_acc, spans = [], [], [], None, None
     for b in range(B):
         z = stratified_z_np(batch["near"][b], batch["far"][b], n_samples, rng)
         if quantize_z:
@@ -287,16 +295,19 @@ def prepare_hat_batch(batch, out_sh, site_caps, voxel_size, n_samples,
         plan = plan_hat_groups(dhw, geom_b, out_sh, site_caps,
                                group_size=group_size, tile=tile,
                                rows_caps=rows_caps, n_groups=n_groups,
-                               seg_caps=seg_caps)
+                               seg_caps=seg_caps, d_spans=d_spans)
         rows_caps = plan["rows_caps"]
         seg_caps = plan["seg_caps"]
         n_groups = plan["n_groups"]
+        if d_spans:
+            spans = plan["d_spans"] if spans is None else tuple(
+                max(a, b) for a, b in zip(spans, plan["d_spans"]))
 
         zs.append(z)
         sorts.append(plan["perm"].astype(sort_dt, copy=False))
         if seg_acc is None:
-            seg_acc = {k: [] for k in plan if k.startswith("seg_")
-                       and k != "seg_caps"}
+            seg_acc = {k: [] for k in plan if k.startswith("seg_a")
+                       or k.startswith("seg_cum")}
         for k in seg_acc:
             seg_acc[k].append(plan[k].astype(np.uint16, copy=False)
                               if max(site_caps) <= 65535
@@ -317,6 +328,8 @@ def prepare_hat_batch(batch, out_sh, site_caps, voxel_size, n_samples,
     hat_static = {"rows_caps": rows_caps, "seg_caps": seg_caps,
                   "n_groups": n_groups, "group_size": group_size,
                   "tile": tuple(tile)}
+    if d_spans:
+        hat_static["d_spans"] = spans
     return batch, hat_static
 
 

@@ -445,20 +445,25 @@ def down_conv(x, w, down_tbl, up_tbl):
     return _DownConv.apply(x, w, down_tbl, up_tbl)
 
 
-def masked_batch_norm(x, mask, scale, bias, eps=1e-3):
+def masked_batch_norm(x, mask, scale, bias, eps=1e-3, total=None):
     """BatchNorm over active sites only.
 
     x: [..., S, C]; mask: [..., S]. Statistics are over all leading dims and
-    S, weighted by mask. Returns normalized x (zeroed at padded rows) plus
-    batch (mean, var), where the returned var is UNBIASED (n/(n-1)) to match
-    what torch BatchNorm1d stores in running_var — normalization itself
-    uses the biased var.
+    S, weighted by mask, in two passes (the mean, then the squared
+    deviations). total: None, or a differentiable sum over the ranks of a
+    process group that each pass's sums go through (a BatchNorm synced
+    across the group, as a batch-mode sharded step needs). Returns normalized x
+    (zeroed at padded rows) plus batch (mean, var), where the returned var
+    is UNBIASED (n/(n-1)) to match what torch BatchNorm1d stores in
+    running_var — normalization itself uses the biased var.
     """
+    if total is None:
+        total = lambda t: t  # noqa: E731
     m = mask[..., None]
     dims = tuple(range(x.dim() - 1))
-    n = torch.clamp(m.sum(), min=1.0)
-    mean = (x * m).sum(dim=dims) / n
-    var = (((x - mean) ** 2) * m).sum(dim=dims) / n
+    n = torch.clamp(total(m.sum()), min=1.0)
+    mean = total((x * m).sum(dim=dims)) / n
+    var = total((((x - mean) ** 2) * m).sum(dim=dims)) / n
     y = (x - mean) * torch.rsqrt(var + eps) * scale + bias
     return y * m, (mean, var * (n / torch.clamp(n - 1.0, min=1.0)))
 

@@ -7,6 +7,8 @@ zero-fills. Two paths:
 
   * batches that carry the host planner's fields (hat_sort) go through the
     grouped hat contraction (ops/hat_interp.py): the training path;
+  * a rays-only training batch under settings.hat_plan builds that plan on
+    the device (ops/device_plan.py) and takes the same contraction;
   * rays-only batches (what the evaluators and visualizers send) sample
     their depths on the device and are rendered in chunks of chunk_rays
     rays, through the site features and int32 index volumes
@@ -30,7 +32,7 @@ from ..models.nn_utils import mxu_dtype
 from ..ops.compositing import raw2outputs
 from ..ops.hat_interp import (decode_z, expand_segments, hat_interpolate,
                               inverse_perm)
-from ..ops.ray_ops import sample_along_rays
+from ..ops.ray_ops import sample_along_rays, stratified_z_vals
 
 
 class RenderSettings(NamedTuple):
@@ -52,6 +54,14 @@ class RenderSettings(NamedTuple):
     # static per-level expansion widths of the hat path's compact row
     # segments (= the planner's rows_caps); consulted for segment batches
     hat_rows_caps: tuple = ()
+    # ops/device_plan.DevicePlanSpec: a rays-only training batch builds its
+    # hat plan on the device (render_rays_hat_device)
+    hat_plan: tuple = None
+    # None, or the sharded steps' group split (parallel/train.GroupShard):
+    # the hat paths decode this rank's share(n_groups) of the groups and
+    # gather(raw, first, total) every rank's raw field, so that every rank
+    # composites all rays
+    group_shard: object = None
 
 
 _ELEM_KEYS = ("ray_o", "ray_d", "near", "far", "Th", "bounds",
@@ -145,6 +155,32 @@ def precompute_hat_device(batch, rows_caps, site_caps, n_samples):
     return batch
 
 
+def _group_share(s, ngrp):
+    """[g0, g1) of the groups this rank decodes: all of them unless
+    settings.group_shard splits them over the ranks."""
+    if s.group_shard is None:
+        return 0, ngrp
+    return s.group_shard.share(ngrp)
+
+
+def _elem(batch, b):
+    elem = {k: batch[k][b] for k in _ELEM_KEYS if k in batch}
+    elem["R"] = batch["R"] if batch["R"].dim() == 2 else batch["R"][b]
+    elem["geom"] = {k: v[b] for k, v in batch["geom"].items()}
+    return elem
+
+
+def _hat_site_feats(params, batch, s):
+    site_feats, new_stats = lx.encode_sparse_voxels(
+        params, batch["geom"], s.model, densify=False)
+    if mxu_dtype(s.model.encoder.compute_dtype,
+                 site_feats[0].device) == torch.bfloat16:
+        # bf16 site features halve the gathered bytes and select the bf16
+        # contraction of the hat kernel
+        site_feats = [x.bfloat16() for x in site_feats]
+    return site_feats, new_stats
+
+
 def render_rays_hat(params, batch, settings: RenderSettings, train=False,
                     generator=None):
     """Render over the host-planned hat fields.
@@ -157,7 +193,8 @@ def render_rays_hat(params, batch, settings: RenderSettings, train=False,
     Requires the planner's fields (ops/hat_interp.prepare_hat_batch: z_vals
     or z_frac, hat_sort, hat_seg_a{1..4}, hat_seg_cum{1..4}) plus
     settings.hat_rows_caps, or the pre-expanded hat_rows{l} (and optionally
-    hat_wpts/hat_vdir) from precompute_hat_device.
+    hat_wpts/hat_vdir) from precompute_hat_device. Under
+    settings.group_shard this rank decodes its share of the groups only.
 
     Returns (ret, new_bn_stats); ret maps are [B, R, ...].
     """
@@ -168,50 +205,102 @@ def render_rays_hat(params, batch, settings: RenderSettings, train=False,
             "hat batch needs RenderSettings.hat_rows_caps (the planner's "
             "rows_caps, e.g. hat_static['rows_caps'])")
 
-    site_feats, new_stats = lx.encode_sparse_voxels(
-        params, batch["geom"], s.model, densify=False)
-    if mxu_dtype(s.model.encoder.compute_dtype,
-                 site_feats[0].device) == torch.bfloat16:
-        # bf16 site features halve the gathered bytes and select the bf16
-        # contraction of the hat kernel
-        site_feats = [x.bfloat16() for x in site_feats]
-
+    site_feats, new_stats = _hat_site_feats(params, batch, s)
     B, R = batch["ray_o"].shape[:2]
     n_samples = (batch["z_frac"] if "z_frac" in batch
                  else batch["z_vals"]).shape[-1]
 
     outs = []
     for b in range(B):
-        elem = {k: batch[k][b] for k in _ELEM_KEYS if k in batch}
-        elem["R"] = batch["R"] if batch["R"].dim() == 2 else batch["R"][b]
-        elem["geom"] = {k: v[b] for k, v in batch["geom"].items()}
+        elem = _elem(batch, b)
+        ngrp = elem["hat_rows1" if pre_expanded else "hat_seg_a1"].shape[0]
+        g0, g1 = _group_share(s, ngrp)
         if pre_expanded:
-            rows = {l: elem[f"hat_rows{l}"].to(torch.int32)
+            rows = {l: elem[f"hat_rows{l}"][g0:g1].to(torch.int32)
                     for l in (1, 2, 3, 4)}
         else:
             rows = {l: expand_segments(
-                        elem[f"hat_seg_a{l}"], elem[f"hat_seg_cum{l}"],
+                        elem[f"hat_seg_a{l}"][g0:g1],
+                        elem[f"hat_seg_cum{l}"][g0:g1],
                         s.hat_rows_caps[l - 1], s.model.encoder.site_caps[l])
                     for l in (1, 2, 3, 4)}
         z = _depths(elem)
         srt = elem["hat_sort"].long()
-        ngrp = rows[1].shape[0]
+        P = srt.shape[0] // ngrp
         if "hat_wpts" in elem:
-            wpts, vdir = elem["hat_wpts"], elem["hat_vdir"]
+            wpts, vdir = elem["hat_wpts"][g0:g1], elem["hat_vdir"][g0:g1]
         else:
-            wpts, vdir = _sorted_pts_dirs(elem, z, srt, ngrp, n_samples)
+            wpts, vdir = _sorted_pts_dirs(elem, z, srt[g0 * P:g1 * P],
+                                          g1 - g0, n_samples)
         outs.append(_hat_finish(params, elem, [x[b] for x in site_feats], s,
                                 rows, srt, z, wpts, vdir, R, n_samples,
                                 s.raw_noise_std if train else 0.0,
-                                generator))
+                                generator, (g0 * P, ngrp * P)))
+    ret = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    return ret, new_stats
+
+
+def render_rays_hat_device(params, batch, settings: RenderSettings,
+                           train=False, generator=None):
+    """The hat training render with the plan built on the device
+    (ops/device_plan.py), for a rays-only batch (ray_o/ray_d/near/far,
+    frame info, geom) under settings.hat_plan (a DevicePlanSpec).
+
+    The depths are drawn here (ops/ray_ops.stratified_z_vals; perturbed
+    from `generator` when train and settings.perturb), then grouped, and
+    the render is render_rays_hat's. The JAX function folds its key per
+    batch element; the port draws every element from one generator, so
+    only perturb off is held bit for bit. Under settings.group_shard every
+    rank builds the same whole plan (integer operations on the same
+    inputs) and decodes its share of the groups.
+
+    Returns (ret, new_bn_stats); ret adds plan_overflow [B] (1.0 where a
+    plan needed more than the spec's static sizes).
+    """
+    from ..ops.device_plan import plan_hat_device
+    s = settings
+    spec = s.hat_plan
+    site_feats, new_stats = _hat_site_feats(params, batch, s)
+    B, R = batch["ray_o"].shape[:2]
+    n_samples, P = s.n_samples, spec.group_size
+    g0, g1 = _group_share(s, spec.n_groups)
+
+    outs = []
+    for b in range(B):
+        elem = _elem(batch, b)
+        z = stratified_z_vals(elem["near"], elem["far"], n_samples,
+                              generator=generator,
+                              perturb=train and s.perturb)        # [R, S]
+        pts = (elem["ray_o"][:, None, :]
+               + elem["ray_d"][:, None, :] * z[..., None]).reshape(-1, 3)
+        dhw = lx.get_dhw_vox(lx.pts_to_can_pts(pts, elem["R"], elem["Th"]),
+                             elem["bounds"], s.voxel_size)
+        srt, rows, overflow = plan_hat_device(dhw.detach(), elem["geom"],
+                                              spec)
+        srt = srt.long()
+        own = srt[g0 * P:g1 * P]
+        vd = elem["ray_d"]
+        vd = vd / torch.clamp(torch.linalg.norm(vd, dim=-1, keepdim=True),
+                              min=1e-8)
+        out = _hat_finish(params, elem, [x[b] for x in site_feats], s,
+                          {l: r[g0:g1] for l, r in rows.items()}, srt, z,
+                          pts[own].reshape(g1 - g0, P, 3),
+                          vd[own // n_samples].reshape(g1 - g0, P, 3),
+                          R, n_samples, s.raw_noise_std if train else 0.0,
+                          generator, (g0 * P, spec.n_groups * P))
+        out["plan_overflow"] = overflow
+        outs.append(out)
     ret = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
     return ret, new_stats
 
 
 def _hat_finish(params, elem, feats, s, rows, srt, z, wpts, vdir, R,
-                n_samples, raw_noise_std=0.0, generator=None):
+                n_samples, raw_noise_std=0.0, generator=None, slots=None):
     """Interpolate -> decode -> hull -> de-sort -> quadrature (one batch
-    element; shared by the training and the eval render)."""
+    element; shared by the training and the eval render). rows, wpts and
+    vdir are the groups this rank decodes; srt is the whole sort. Under
+    settings.group_shard, slots = (this rank's first slot, all slots): the
+    ranks' raw fields are gathered before the de-sort."""
     frame = {"R": elem["R"], "Th": elem["Th"], "bounds": elem["bounds"],
              "latent_index": elem["latent_index"]}
     ppts = lx.pts_to_can_pts(wpts, frame["R"], frame["Th"])
@@ -231,8 +320,13 @@ def _hat_finish(params, elem, feats, s, rows, srt, z, wpts, vdir, R,
                 flat_pts, elem["Ks"], elem["RT"], elem["msks"], s.img_hw)
         raw = raw * inside[:, None]
 
-    # de-sort: ray-layout sample i reads its first sorted occurrence
-    raw = raw[inverse_perm(srt, R * n_samples)].reshape(R, n_samples, 4)
+    if s.group_shard is not None:
+        raw = s.group_shard.gather(raw, *slots)
+    # de-sort: ray-layout sample i reads its first sorted occurrence. A
+    # device plan that overflowed its groups leaves samples out; they read
+    # the last slot, as JAX's gather clamps (the step flags the plan)
+    inv = torch.clamp(inverse_perm(srt, R * n_samples), max=raw.shape[0] - 1)
+    raw = raw[inv].reshape(R, n_samples, 4)
     out = raw2outputs(raw, z, elem["ray_d"], s.white_bkgd, raw_noise_std,
                       generator)
     del out["weights"]
@@ -281,10 +375,12 @@ def render_rays(params, batch, settings: RenderSettings, train=False,
     """Render all rays in a batch.
 
     Batches that carry the host-planned hat fields (hat_sort) take the hat
-    path. Rays-only batches (geom, ray_o/ray_d/near/far [B, R, .],
-    R/Th/bounds/latent_index, optional hull fields) sample settings.n_samples
-    depths per ray on the device and render in chunks of settings.chunk_rays
-    rays, of which R must be a multiple (pad with ray_mask = 0 rays).
+    path, and so does a rays-only training batch under settings.hat_plan
+    (render_rays_hat_device). Other rays-only batches (geom,
+    ray_o/ray_d/near/far [B, R, .], R/Th/bounds/latent_index, optional hull
+    fields) sample settings.n_samples depths per ray on the device and
+    render in chunks of settings.chunk_rays rays, of which R must be a
+    multiple (pad with ray_mask = 0 rays).
     train=True turns on the stratified perturbation (settings.perturb) and
     the raw-noise term (settings.raw_noise_std), both drawn from `generator`,
     a torch.Generator on the batch's device. Returns (ret, new_bn_stats):
@@ -294,6 +390,9 @@ def render_rays(params, batch, settings: RenderSettings, train=False,
     if "hat_sort" in batch:
         return render_rays_hat(params, batch, settings, train=train,
                                generator=generator)
+    if train and s.hat_plan is not None:
+        return render_rays_hat_device(params, batch, settings, train=train,
+                                      generator=generator)
     B, R = batch["ray_o"].shape[:2]
     chunk = min(s.chunk_rays, R)
     if R % chunk != 0:

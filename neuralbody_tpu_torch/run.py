@@ -13,9 +13,10 @@ evaluate_nv: score saved competitor renders against GT (ref :109-122)
 
 The config is make_cfg_from_args's (the YAML, then `key value` opts; --type
 sets task "run" before the YAML, as the reference does), with perturb off.
-Every render runs on one card through train/step.eval_step (the JAX
-package shards eval rays over its devices), or on the CPU with --device
-cpu. Checkpoints load through train/checkpoint.load_params, so either
+Every render runs through parallel/train.ShardedEval, on the card or on
+the CPU with --device cpu: with one process that is train/step.eval_step;
+in a process group a caller formed (parallel/bootstrap.py) the eval rays
+split over the ranks, as the JAX package splits them over its devices. Checkpoints load through train/checkpoint.load_params, so either
 package's checkpoint evaluates.
 """
 from __future__ import annotations
@@ -49,12 +50,13 @@ def build_eval_state(cfg, device=None):
     """(params, settings, loader, eval_fn, device) for the test split: the
     network built from the config and loaded from cfg.trained_model_dir
     (cfg.test.epoch, default the latest), eval_fn(params, batch) ->
-    eval_step's output on `device` (the card unless "cpu")."""
+    eval_step's output on `device` (the card unless "cpu"), through
+    parallel/train.ShardedEval."""
     from . import datasets, evaluators, models, renderer, visualizers  # noqa: F401
     from .config import build
     from .datasets.loader import make_data_loader, make_dataset
+    from .parallel.train import ShardedEval
     from .train.checkpoint import load_params
-    from .train.step import eval_step
     from .utils.platform import resolve_device
 
     device = resolve_device(device)
@@ -67,9 +69,7 @@ def build_eval_state(cfg, device=None):
                                device=device)
     load_params(cfg.trained_model_dir, params, bn_stats, epoch=cfg.test.epoch)
 
-    def eval_fn(params, batch):
-        return eval_step(params, batch, settings, device=device)
-
+    eval_fn = ShardedEval(settings, device)
     loader = make_data_loader(cfg, "test", dataset=dataset)
     return params, settings, loader, eval_fn, device
 

@@ -13,7 +13,7 @@ torch.Generator seeded with cfg.seed, and Adam with the config's schedule.
 An epoch is make_data_loader's batches (for latent_xyzc each carries its
 hat plan, made by the C++ planner in the loader's workers), G =
 cfg.tpu.steps_per_dispatch at a time trained in one dispatch each. As the
-JAX Trainer does on one host, by default (bank=True) the loader leaves each
+JAX Trainer does on one host, by default (with one rank) the loader leaves each
 frame's geometry in its geom_cache (attach_geom=False), a device
 GeomBank (parallel/geom.py) holds every frame once, and a DevicePrefetcher
 of depth PREFETCH_DEPTH stages each group on a background thread
@@ -28,7 +28,18 @@ epoch is shorter than G.
 Every family trains, on the card as on the CPU: train/step.py sends
 latent_xyzc's hat batches under Adam through the CUDA graph, and a batch
 without a hat plan (the NeRF baseline) or another optimizer through the
-eager loop (ROADMAP.md section 1, item 13 graphs those later). Each epoch
+eager loop (ROADMAP.md section 1, item 13 graphs those later). With
+cfg.tpu.hat_plan_device the loader ships rays only after its first
+batches, and the step builds the hat plan on the device
+(ops/device_plan.py) in the same banked graph; a dispatch whose plan
+overflowed its static sizes raises (checked one dispatch late, so that
+the check waits on no running dispatch).
+
+In a process group of more than one rank (parallel/bootstrap.py) each rank
+runs a ConfigRun: the loader gives every rank the same batches (or, with
+cfg.train.data_sharding "host", each rank its own frames), the geometry
+rides with each batch (bank=False, as the JAX Trainer does on many hosts)
+and the dispatch is parallel/train.py's sharded scan step, eager. Each epoch
 reseeds the render's generator the JAX Trainer's way (epoch * 100003 +
 cfg.seed), so a run resumed at an epoch boundary makes the same draws.
 train/trainer.Trainer adds checkpoints, the recorder, validation and fit
@@ -43,11 +54,14 @@ import torch
 
 from ..config import build, make_cfg
 from ..datasets.loader import make_data_loader, make_dataset
+from ..ops.device_plan import spec_from_state
+from ..parallel import bootstrap
 from ..parallel.geom import GeomBank, bank_capacity
+from ..parallel.train import (make_sharded_scan_step,
+                              make_sharded_scan_step_banked)
 from ..parallel.transfer import DevicePrefetcher, StagingRing
 from ..utils.platform import resolve_device
 from .optimizer import make_optimizer
-from .step import train_step_scan, train_step_scan_banked
 
 CONFIG_313 = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -95,18 +109,31 @@ class ConfigRun:
     make_dataset(cfg, "train")); pool: a started datasets/loader.WorkerPool
     over that dataset, or None for the loader's thread; device: the card
     unless "cpu" is given; bank: train on a device geometry bank through
-    the prefetcher (default) or stack each group's geometry on the host;
-    staging: the StagingRing of the banked path (default PREFETCH_DEPTH + 1
-    sets). Attributes: settings, params, bn_stats, opt and schedule
-    (train/optimizer.make_optimizer(cfg)), generator, hat_state (the
-    plan's static sizes, derived by the first epoch's first batches), G,
-    geom_cache (the loader's frames), bank (a GeomBank, or None) and
-    staging.
+    the prefetcher or stack each group's geometry on the host (default:
+    banked with one rank, stacked with more; the banked step is
+    single-process); staging: the StagingRing of the banked path (default
+    PREFETCH_DEPTH + 1 sets); rank, world: this process in its group
+    (default parallel/bootstrap's). Attributes: settings, params, bn_stats,
+    opt and schedule (train/optimizer.make_optimizer(cfg)), generator,
+    hat_state (the plan's static sizes, derived by the first epoch's first
+    batches), G, geom_cache (the loader's frames), bank (a GeomBank, or
+    None), staging, rank, world and data_mode ("batch" with
+    cfg.train.data_sharding "host" and more than one rank, else "rays").
     """
 
-    def __init__(self, cfg, dataset=None, pool=None, device=None, bank=True,
-                 staging=None):
+    def __init__(self, cfg, dataset=None, pool=None, device=None, bank=None,
+                 staging=None, rank=None, world=None):
         self.cfg = cfg
+        self.rank = bootstrap.rank() if rank is None else rank
+        self.world = bootstrap.world() if world is None else world
+        self.data_mode = ("batch" if self.world > 1 and cfg.train.get(
+            "data_sharding", "") == "host" else "rays")
+        if bank is None:
+            bank = self.world == 1
+        self.scan = make_sharded_scan_step(self.data_mode, self.rank,
+                                           self.world)
+        self.scan_banked = (make_sharded_scan_step_banked(self.world)
+                            if bank else None)
         self.device = resolve_device(device)
         self.dataset = (make_dataset(cfg, "train") if dataset is None
                         else dataset)
@@ -135,32 +162,64 @@ class ConfigRun:
         self.G = max(1, int(cfg.tpu.steps_per_dispatch))
         self.hat_state = {}
 
+    _overflow = None   # the last dispatch's plan_overflow flags
+
     def loader(self, epoch):
         """make_data_loader's training batches of `epoch` (without their
-        geometry on the banked path: it stays in geom_cache)."""
+        geometry on the banked path: it stays in geom_cache), this rank's
+        in a group."""
         return make_data_loader(self.cfg, "train", dataset=self.dataset,
                                 epoch=epoch, hat_state=self.hat_state,
                                 pool=self.pool,
                                 attach_geom=self.bank is None,
-                                geom_cache=self.geom_cache)
+                                geom_cache=self.geom_cache,
+                                num_hosts=self.world, host_id=self.rank)
 
     def _settings(self, batches):
-        if "hat_sort" not in batches:
-            return self.settings
-        # the static expansion widths of the hat plan's row segments,
-        # derived by the loader's first batches
-        return self.settings._replace(
-            hat_rows_caps=tuple(self.hat_state["rows_caps"]))
+        if "hat_sort" in batches:
+            # the static expansion widths of the hat plan's row segments,
+            # derived by the loader's first batches
+            return self.settings._replace(
+                hat_rows_caps=tuple(self.hat_state["rows_caps"]))
+        if self.hat_state.get("rows_caps"):
+            # rays only after the loader derived the statics: the plan is
+            # built on the device (cfg.tpu.hat_plan_device)
+            return self.settings._replace(hat_plan=spec_from_state(
+                self.hat_state, self.settings.model.encoder,
+                group_size=int(self.cfg.tpu.hat_group_size),
+                tile=tuple(self.cfg.tpu.hat_tile)))
+        return self.settings
+
+    def check_overflow(self, stats=None):
+        """Raise if the previous dispatch's plan built on the device
+        overflowed its static sizes, and hold `stats`' flag for the next
+        call (stats=None checks the last one and holds nothing). Reading
+        one dispatch late waits for a dispatch that has ended while the
+        next one runs. The JAX package only logs the flag (ADVICE.md on
+        neuralbody_tpu/ops/device_plan.py:129): a plan that overflowed has
+        clipped rows and trains on a wrong render."""
+        last = self._overflow
+        self._overflow = None if stats is None else stats.get(
+            "plan_overflow")
+        if last is not None and bool(last.amax() > 0):
+            raise RuntimeError(
+                "the hat plan built on the device needed more groups, rows "
+                "or d-slices than the static sizes derived from the first "
+                f"batches ({self.hat_state}); raise "
+                "cfg.tpu.hat_static_margin (now "
+                f"{float(self.cfg.tpu.get('hat_static_margin', 1.0))})")
 
     def dispatch(self, batches):
         """Train on a list of numpy batches that carry their geometry, one
-        step each, in one dispatch (stacked on the host). Returns the
-        steps' stats, stacked."""
+        step each, in one dispatch (stacked on the host): train_step_scan
+        with one rank, the sharded scan step with more. Returns the steps'
+        stats, stacked."""
         stacked = stack_batches(batches)
-        self.bn_stats, stats = train_step_scan(
+        self.bn_stats, stats = self.scan(
             self.params, self.bn_stats, self.opt, stacked,
             self._settings(stacked), device=self.device,
             generator=self.generator)
+        self.check_overflow(stats)
         return stats
 
     def stage(self, item):
@@ -180,13 +239,14 @@ class ConfigRun:
         it carries geom_rows."""
         settings = self._settings(staged)
         if "geom_rows" in staged:
-            self.bn_stats, stats = train_step_scan_banked(
+            self.bn_stats, stats = self.scan_banked(
                 self.params, self.bn_stats, self.opt, staged, self.bank,
                 settings, device=self.device, generator=self.generator)
         else:
-            self.bn_stats, stats = train_step_scan(
+            self.bn_stats, stats = self.scan(
                 self.params, self.bn_stats, self.opt, staged, settings,
                 device=self.device, generator=self.generator)
+        self.check_overflow(stats)
         return stats
 
     def epoch(self, epoch, loader=None):
@@ -194,7 +254,13 @@ class ConfigRun:
         self.loader(epoch)) yields (batch, meta) pairs. On the banked path
         a group goes to the prefetcher when it is full, and every group
         staged by then is dispatched after each batch, as the JAX Trainer
-        does (neuralbody_tpu/train/trainer.py:210-226)."""
+        does (neuralbody_tpu/train/trainer.py:210-226). A plan built on
+        the device that overflowed raises (check_overflow: the dispatches
+        check their predecessors, the epoch its last)."""
+        yield from self._epoch(epoch, loader)
+        self.check_overflow()
+
+    def _epoch(self, epoch, loader):
         loader = self.loader(epoch) if loader is None else loader
         # the JAX Trainer's key of the epoch (trainer.py:119-120); the same
         # Generator object, so that a graph that registered it stays valid

@@ -47,11 +47,19 @@ def _card(device):
     return device
 
 
-def _hat_batch(batch, settings, what):
-    if not isinstance(settings, RenderSettings) or "hat_sort" not in batch:
-        raise ValueError(f"{what} takes latent_xyzc's hat batches "
-                         "(ops/hat_interp.prepare_hat_batch) and their "
-                         "RenderSettings")
+def _hat_batch(batch, settings, what, device_plan=False):
+    """Refuse a batch off latent_xyzc's hat path: one with a host plan
+    (ops/hat_interp.prepare_hat_batch), or, where device_plan, a rays-only
+    one under settings.hat_plan (the plan built in the graph)."""
+    if isinstance(settings, RenderSettings) and (
+            "hat_sort" in batch
+            or (device_plan and settings.hat_plan is not None)):
+        return
+    raise ValueError(f"{what} takes latent_xyzc's hat batches "
+                     "(ops/hat_interp.prepare_hat_batch"
+                     + (", or rays only under RenderSettings.hat_plan"
+                        if device_plan else "") + ") and their "
+                     "RenderSettings")
 
 
 def _signature(tree, path=""):
@@ -105,7 +113,8 @@ def _capture(body, restore, generator=None):
             raise RuntimeError(
                 f"torch {torch.__version__} cannot register a "
                 "torch.Generator with a CUDA graph; the raw-noise term "
-                "(raw_noise_std > 0) cannot be captured")
+                "(raw_noise_std > 0) and the perturbed depths of a plan "
+                "built on the device cannot be captured")
         graph.register_generator_state(generator)
     # thread_local: the prefetcher's thread (parallel/transfer.py) may stage
     # the next group (event waits, copies on its own stream) while this
@@ -121,9 +130,10 @@ class StepGraph:
 
     Call it as train_step_scan is called, with `batches` a hat batch (on
     the card or in numpy) whose every leaf has a leading axis of G steps:
-    precompute_hat_device's batches, or un-expanded ones with
+    precompute_hat_device's batches, un-expanded ones with
     settings.hat_rows_caps (the segment expansion is device work with
-    static caps). With a `bank` (parallel/geom.GeomBank) the batches carry
+    static caps), or rays-only ones under settings.hat_plan (the plan is
+    built inside the graph, ops/device_plan.py). With a `bank` (parallel/geom.GeomBank) the batches carry
     geom_rows [G, B] in place of geom, and step i takes its geometry from
     the bank inside the graph (take). It captures at the first call and
     whenever the shapes, dtypes, settings, generator, the optimizer's
@@ -147,7 +157,7 @@ class StepGraph:
 
     def __call__(self, params, bn_stats, opt, batches, settings,
                  generator=None, bank=None):
-        _hat_batch(batches, settings, "StepGraph")
+        _hat_batch(batches, settings, "StepGraph", device_plan=True)
         if not isinstance(opt, Adam):
             raise ValueError(f"StepGraph reads Adam's moments and per-step "
                              f"scalars, not {type(opt).__name__}'s")
@@ -161,7 +171,12 @@ class StepGraph:
             batches = to_device(batches, self.device)
         bn_stats = to_device(bn_stats, self.device)
         G = scan_length(batches)
-        noise = generator if settings.raw_noise_std > 0 else None
+        # the graph draws from the generator for the raw-noise term and
+        # for the depths of a plan built on the device
+        draws = settings.raw_noise_std > 0 or (
+            settings.hat_plan is not None and settings.perturb
+            and "hat_sort" not in batches)
+        noise = generator if draws else None
         banked = None if bank is None else (
             bank.storage.data_ptr(), tuple(bank.storage.shape), bank.layout)
         key = (settings, _signature(batches), _signature(bn_stats),

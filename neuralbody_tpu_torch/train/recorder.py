@@ -4,9 +4,10 @@ neuralbody_tpu/train/recorder.py; host only).
 Equivalent of the reference Recorder (ref: lib/train/recorder.py:10-125):
 windowed median/average smoothing of scalar stats, tensorboard scalars and
 HWC images at a record cadence, ETA/console status lines, own state for
-resume. One Trainer runs on one card, so every Recorder writes (the JAX
-package's primary-host rule has no counterpart). Where tensorboardX does
-not import there is no writer (`has_writer` is False) and record() writes nothing.
+resume. Only the primary rank's Recorder writes (Recorder(cfg,
+is_primary), the JAX package's primary-host rule); where tensorboardX
+does not import there is no writer either (`has_writer` is False) and
+record() writes nothing.
 """
 from __future__ import annotations
 
@@ -44,8 +45,9 @@ class SmoothedValue:
 
 
 class Recorder:
-    def __init__(self, cfg):
+    def __init__(self, cfg, is_primary=True):
         self.cfg = cfg
+        self.is_primary = is_primary
         self.step = 0
         self.epoch = 0
         self.scalars = defaultdict(SmoothedValue)
@@ -53,6 +55,8 @@ class Recorder:
         self.batch_time = SmoothedValue()
         self.data_time = SmoothedValue()
         self._writer = None
+        if not is_primary:
+            return
         os.makedirs(cfg.record_dir, exist_ok=True)
         try:
             from tensorboardX import SummaryWriter

@@ -24,11 +24,16 @@ from ..utils.platform import resolve_device, to_device
 from .optimizer import Adam, tree_leaves, tree_map
 
 
-def masked_mse(pred, target, mask):
-    """Mean squared error over valid rays (mask [B, R])."""
+def masked_mse(pred, target, mask, count=None):
+    """Mean squared error over valid rays (mask [B, R]). count: the number
+    of valid rays the mean is over (default this mask's); a sharded step
+    passes the count over every rank's rays, as GSPMD's global sum gives
+    it."""
     m = mask[..., None]
     se = ((pred - target) ** 2) * m
-    return se.sum() / torch.clamp(m.sum() * pred.shape[-1], min=1.0)
+    if count is None:
+        count = m.sum()
+    return se.sum() / torch.clamp(count * pred.shape[-1], min=1.0)
 
 
 def merge_bn_stats(bn_stats, new_bn):
@@ -39,24 +44,30 @@ def merge_bn_stats(bn_stats, new_bn):
     return {"xyzc_net": update_running_stats(bn_stats["xyzc_net"], new_bn)}
 
 
-def loss_fn(params, batch, settings, generator=None):
+def loss_fn(params, batch, settings, generator=None, count=None):
     """Training render + masked MSE, plus the NeRF baseline's auxiliary
     coarse term when the render returns rgb0. Returns (loss, (ret, new_bn,
-    stats)) with stats img_loss, psnr and, with rgb0, img_loss0."""
+    stats)) with stats img_loss, psnr, with rgb0 img_loss0, and with a
+    plan built on the device plan_overflow (1.0 when the plan needed more
+    than its static sizes: ops/device_plan.py). count: masked_mse's."""
     ret, new_bn = get_render_fn(settings)(params, batch, settings,
                                           train=True, generator=generator)
-    img_loss = masked_mse(ret["rgb_map"], batch["rgb"], batch["ray_mask"])
+    img_loss = masked_mse(ret["rgb_map"], batch["rgb"], batch["ray_mask"],
+                          count)
     loss = img_loss
     stats = {"img_loss": img_loss.detach()}
     if "rgb0" in ret:
-        img_loss0 = masked_mse(ret["rgb0"], batch["rgb"], batch["ray_mask"])
+        img_loss0 = masked_mse(ret["rgb0"], batch["rgb"], batch["ray_mask"],
+                               count)
         loss = loss + img_loss0
         stats["img_loss0"] = img_loss0.detach()
+    if "plan_overflow" in ret:
+        stats["plan_overflow"] = ret["plan_overflow"].detach().amax()
     stats["psnr"] = -10.0 * torch.log10(img_loss.detach())
     return loss, (ret, new_bn, stats)
 
 
-def loss_and_grads(params, batch, settings, generator=None):
+def loss_and_grads(params, batch, settings, generator=None, count=None):
     """The loss, loss_fn's aux and the gradient of every parameter (a tree
     of params' structure; a parameter the loss does not reach gets zeros,
     as JAX gives every leaf a gradient). params and batch are tensors on
@@ -64,7 +75,7 @@ def loss_and_grads(params, batch, settings, generator=None):
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    loss, aux = loss_fn(params, batch, settings, generator)
+    loss, aux = loss_fn(params, batch, settings, generator, count)
     grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
     grads = tree_map(lambda p: _or_zeros(next(grads), p), params)
     return loss.detach(), aux, grads
@@ -132,15 +143,22 @@ def scan_length(batches):
     return steps.pop()
 
 
-def graphed(device, batches, opt):
+def hat_path(batches, settings):
+    """Whether batches take latent_xyzc's hat path: they carry a host plan
+    (hat_sort), or they carry rays only and settings.hat_plan has the plan
+    built on the device."""
+    return ("hat_sort" in batches
+            or getattr(settings, "hat_plan", None) is not None)
+
+
+def graphed(device, batches, opt, settings=None):
     """Whether a dispatch of `batches` under `opt` replays a CUDA graph:
-    on the card, for latent_xyzc's hat batches (they carry hat_sort) under
-    Adam, whose moments and per-step scalars the graph reads. Every other
-    dispatch (the CPU, the NeRF baseline's batches, the T-pose variant's
-    batches, which carry no hat plan, RAdam and SGD) runs train_steps'
-    eager loop: those paths have no graph yet (ROADMAP.md section 1, item
-    13)."""
-    return (device.type == "cuda" and "hat_sort" in batches
+    on the card, for latent_xyzc's hat path (hat_path) under Adam, whose
+    moments and per-step scalars the graph reads. Every other dispatch
+    (the CPU, the NeRF baseline's batches, the T-pose variant's batches,
+    which carry no hat plan, RAdam and SGD) runs train_steps' eager loop:
+    those paths have no graph yet (ROADMAP.md section 1, item 13)."""
+    return (device.type == "cuda" and hat_path(batches, settings)
             and isinstance(opt, Adam))
 
 
@@ -163,7 +181,7 @@ def train_step_scan(params, bn_stats, opt, batches, settings, device=None,
     overwrites: pass them back in.
     """
     device = resolve_device(device)
-    if not graphed(device, batches, opt):
+    if not graphed(device, batches, opt, settings):
         return _plain_scan(params, bn_stats, opt, batches, settings, device,
                            generator)
     from .graphs import StepGraph   # graphs.py builds on this module
@@ -188,7 +206,7 @@ def train_step_scan_banked(params, bn_stats, opt, batches, bank, settings,
     (bn_stats, stats stacked over the G steps), as train_step_scan.
     """
     device = resolve_device(device)
-    if not graphed(device, batches, opt):
+    if not graphed(device, batches, opt, settings):
         return _plain_scan(params, bn_stats, opt, batches, settings, device,
                            generator, bank)
     from .graphs import StepGraph

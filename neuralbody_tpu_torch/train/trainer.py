@@ -17,7 +17,13 @@ interval falls in it), checkpoints in the JAX package's file layout
 (train/checkpoint.py), the reference's save_ep / save_latest_ep / eval_ep
 cadence, a checkpoint at the next epoch boundary on SIGTERM or SIGINT, and
 validate(): the test views through eval_step and the config's evaluator.
-One Trainer runs on one card (or on the CPU with device="cpu").
+
+One Trainer runs on one card (or on the CPU with device="cpu") in each
+process of a group (parallel/bootstrap.py; train_net forms it): the ranks
+start from rank 0's state, ConfigRun trains through the sharded step
+(cfg.train.data_sharding "host": each rank its own frames), validate()
+renders through parallel/train.ShardedEval on every rank, and only the
+primary rank evaluates, records, prints and writes checkpoints.
 """
 from __future__ import annotations
 
@@ -29,26 +35,36 @@ import torch
 from .. import evaluators  # noqa: F401  (registers plugins)
 from ..config import build
 from ..datasets.loader import WorkerPool, make_data_loader, make_dataset
+from ..parallel import bootstrap
+from ..parallel.mesh import replicate_state
+from ..parallel.train import ShardedEval
 from .checkpoint import load_checkpoint, save_checkpoint
 from .fresh import ConfigRun
 from .recorder import Recorder, Timer
-from .step import eval_step
 
 
 class Trainer:
     """cfg: a config.make_cfg tree; device: the card unless "cpu" is
-    given. Attributes: run (the ConfigRun: params, bn_stats, opt,
-    settings), recorder, evaluator."""
+    given (in a group: this rank's card, bootstrap.local_device).
+    Attributes: run (the ConfigRun: params, bn_stats, opt, settings),
+    recorder, evaluator, rank, world, is_primary."""
 
     def __init__(self, cfg, device=None):
         self.cfg = cfg
-        self.run = ConfigRun(cfg, device=device)
+        self.rank, self.world = bootstrap.rank(), bootstrap.world()
+        self.is_primary = self.rank == 0
+        self.run = ConfigRun(cfg, device=bootstrap.run_device(device),
+                             rank=self.rank, world=self.world)
         self.device = self.run.device
-        self.recorder = Recorder(cfg)
+        if self.world > 1:
+            replicate_state(self.run.params, self.run.bn_stats,
+                            self.run.opt.state_dict())
+        self.recorder = Recorder(cfg, self.is_primary)
         self.evaluator = build("evaluator", cfg.evaluator_module, cfg)
         self.pool = None
         # built at the first validate() and kept for the later ones
         self.test_dataset = None
+        self.eval_fn = None
 
     @property
     def params(self):
@@ -83,6 +99,9 @@ class Trainer:
         return begin
 
     def save(self, epoch, latest=False):
+        """Write a checkpoint (the primary rank only)."""
+        if not self.is_primary:
+            return
         save_checkpoint(self.cfg.trained_model_dir, epoch, self.run.params,
                         self.run.bn_stats, self.run.opt,
                         self.recorder.state_dict(), latest=latest)
@@ -115,7 +134,7 @@ class Trainer:
             rec.step += g
             it += g
             rec.batch_time.update(timer.tick() / g)
-            if it % cfg.log_interval < g:
+            if it % cfg.log_interval < g and self.is_primary:
                 # the last step's stats, read back in one copy
                 last = torch.stack([v[-1].float() for v in stats.values()])
                 rec.update(dict(zip(stats, last.tolist())))
@@ -170,18 +189,24 @@ class Trainer:
     # -- eval -------------------------------------------------------------
     def validate(self):
         """Render the test views (make_data_loader(cfg, "test"): rays-only
-        batches, every family through eval_step and renderer/dispatch),
-        score them with the config's evaluator and record the metrics and
-        the last view's pred|gt panel. The test dataset is built at the
-        first call and kept. Returns the evaluator's summary."""
+        batches, every family through eval_step and renderer/dispatch,
+        the rays split over the ranks by ShardedEval), score them with the
+        config's evaluator and record the metrics and the last view's
+        pred|gt panel (the primary rank only). The test dataset is built at
+        the first call and kept. Returns the evaluator's summary (None on
+        the other ranks)."""
         if self.test_dataset is None:
             self.test_dataset = make_dataset(self.cfg, "test")
+            self.eval_fn = ShardedEval(self.run.settings, self.device,
+                                       self.rank, self.world)
         loader = make_data_loader(self.cfg, "test",
                                   dataset=self.test_dataset)
         for batch, meta in loader:
-            ret = eval_step(self.run.params, batch, self.run.settings,
-                            device=self.device)
-            self.evaluator.evaluate(ret, batch, meta)
+            ret = self.eval_fn(self.run.params, batch)
+            if self.is_primary:
+                self.evaluator.evaluate(ret, batch, meta)
+        if not self.is_primary:
+            return None
         last = getattr(self.evaluator, "last_images", None)
         if last is not None:
             self.recorder.update_image_stats(

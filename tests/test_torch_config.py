@@ -216,12 +216,15 @@ def test_factories_build_the_jax_settings(path, monkeypatch):
     assert type(tr).__name__ == type(jr).__name__
     assert isinstance(tr, (RenderSettings, NerfRenderSettings,
                            TposeRenderSettings))
-    want = _fields(jr)
+    want, got = _fields(jr), _fields(tr)
     if isinstance(tr, RenderSettings):
-        assert want.pop("hat_plan") is None     # the device planner's
+        # the port's own field: the sharded steps' group split
+        assert got.pop("group_shard") is None
     if isinstance(tr, (RenderSettings, TposeRenderSettings)):
         assert want["model"]["encoder"].pop("use_pallas") is False
-    assert _fields(tr) == want
+        # the port's own field: the batch-mode step's synced BatchNorm
+        assert got["model"]["encoder"].pop("bn_sum") is None
+    assert got == want
     if "trainer_module" in tcfg:
         assert t_cfg.build("trainer", tcfg.trainer_module, tcfg) is \
             t_step.loss_fn

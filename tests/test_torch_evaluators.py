@@ -174,9 +174,11 @@ def test_val_is_recorded_only_with_metrics(tmp_path, monkeypatch, name):
     monkeypatch.setattr(t_trainer, "make_dataset", lambda cfg, split: None)
     monkeypatch.setattr(t_trainer, "make_data_loader",
                         lambda cfg, split, dataset: [(batch, meta)])
-    monkeypatch.setattr(t_trainer, "eval_step", lambda *a, **k: output)
+    monkeypatch.setattr(t_trainer, "ShardedEval",
+                        lambda *a, **k: lambda *a, **k: output)
     trainer = t_trainer.Trainer.__new__(t_trainer.Trainer)
     trainer.cfg, trainer.test_dataset, trainer.device = cfg, None, "cpu"
+    trainer.rank, trainer.world, trainer.is_primary = 0, 1, True
     trainer.run = type("Run", (), {"params": {}, "settings": None})()
     trainer.recorder = _Recorder()
     trainer.evaluator = t_build("evaluator", name, cfg)

@@ -207,12 +207,6 @@ def test_thread_iterator_raises():
         list(t_loader.DataLoader(ProbeDataset(), [0, 100, 1], chunk_rays=8))
 
 
-def test_plan_device_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_loader.DataLoader(ProbeDataset(), range(4), chunk_rays=8,
-                            plan_device=True)
-
-
 # -- the C++ planner -----------------------------------------------------
 
 
