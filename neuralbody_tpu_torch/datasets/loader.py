@@ -20,14 +20,17 @@ device) the seg_caps are sized by the groups' d-spans
 """
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import threading
+import time
 from typing import NamedTuple
 
 import numpy as np
 
 from ..config import build, register, resolve
+from ..utils import profiling
 from . import samplers
 
 DEVICE_KEYS = ("geom", "rgb", "ray_o", "ray_d", "near", "far", "ray_mask",
@@ -130,16 +133,37 @@ def apply_hat_spec(device, spec: HatSpec, seed, d_spans=False):
 
 
 def produce_batch(dataset, indices, bi, batch_size, chunk_rays, spec,
-                  epoch, seed0):
-    """Build batch `bi` deterministically (reseeds the global numpy RNG)."""
+                  epoch, seed0, stamps=None):
+    """Build batch `bi` deterministically (reseeds the global numpy RNG).
+    stamps: a list that receives the batch's spans as (name, start, end)
+    time.time_ns() readings: loader.batch, and inside it loader.samples
+    (the dataset's items), loader.collate and, with a hat plan,
+    loader.plan."""
+    t0 = time.time_ns()
     np.random.seed(_batch_seed(epoch, bi, seed0))
     batch_idx = indices[bi * batch_size:(bi + 1) * batch_size]
     samples = [dataset[j] for j in batch_idx]
+    t1 = time.time_ns()
     device, meta = collate(samples, chunk_rays)
+    parts = [("loader.samples", t0, t1), ("loader.collate", t1,
+                                          time.time_ns())]
     if spec is not None and spec.rows_caps is not None:
         device, _ = apply_hat_spec(device, spec,
                                    _batch_seed(epoch, bi, seed0 + 1))
+        parts.append(("loader.plan", parts[-1][2], time.time_ns()))
+    if stamps is not None:
+        stamps += [("loader.batch", t0, parts[-1][2])] + parts
     return device, meta
+
+
+def _batch_spans(stamps, epoch, bi, worker):
+    """produce_batch's stamps as profiling.Spans of this thread, with the
+    batch's ids (worker: the pool's worker index, or "thread")."""
+    ids = {"epoch": epoch, "bi": bi, "worker": worker}
+    pid, tid = os.getpid(), threading.get_ident()
+    return [profiling.Span(n, a, b, None if n == "loader.batch"
+                           else "loader.batch", pid, tid, ids)
+            for n, a, b in stamps]
 
 
 def _geom_keys(meta):
@@ -155,8 +179,9 @@ def _worker_main(dataset, wid, num_workers, task_q, result_q):
     """Loader worker loop: produce every (first_bi + wid + k*W)-th batch.
 
     Geometry tables are shipped at most once per (worker, frame); later
-    batches reference them by geom_key (parent-side cache). An exception
-    goes back to the parent as (epoch, "error", wid, traceback, None)."""
+    batches reference them by geom_key (parent-side cache); each batch's
+    spans (produce_batch's stamps) travel with it. An exception goes back
+    to the parent as (epoch, "error", wid, traceback, None, None)."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""  # never touch the card
     shipped = set()
     epoch = None
@@ -168,9 +193,10 @@ def _worker_main(dataset, wid, num_workers, task_q, result_q):
             (epoch, indices, batch_size, chunk_rays, spec, seed0,
              first_bi, n_batches) = task
             for bi in range(first_bi + wid, n_batches, num_workers):
+                stamps = []
                 device, meta = produce_batch(
                     dataset, indices, bi, batch_size, chunk_rays, spec,
-                    epoch, seed0)
+                    epoch, seed0, stamps)
                 payload = None
                 keys = _geom_keys(meta)
                 if keys is not None:
@@ -181,11 +207,13 @@ def _worker_main(dataset, wid, num_workers, task_q, result_q):
                     }
                     shipped.update(keys)
                     meta["_geom_keys"] = keys
-                result_q.put((epoch, bi, device, meta, payload))
-            result_q.put((epoch, None, None, None, None))
+                result_q.put((epoch, bi, device, meta, payload,
+                              _batch_spans(stamps, epoch, bi, wid)))
+            result_q.put((epoch, None, None, None, None, None))
     except BaseException:  # noqa: BLE001 — re-raised in the parent
         import traceback
-        result_q.put((epoch, "error", wid, traceback.format_exc(), None))
+        result_q.put((epoch, "error", wid, traceback.format_exc(), None,
+                      None))
 
 
 class WorkerPool:
@@ -196,7 +224,8 @@ class WorkerPool:
     environment while the children start (and restored after), so a worker
     sees no card and can never create a CUDA context. A worker that raises
     sends its traceback back and the parent raises it; a worker that dies
-    without a word is found by the parent's timed wait.
+    without a word is found by the parent's timed wait. The spans of a
+    batch go to the ring (utils/profiling) when the parent takes it.
     """
 
     POLL_S = 5.0   # the parent's wait between liveness checks of the workers
@@ -274,19 +303,21 @@ class WorkerPool:
         buf, done, next_bi = {}, 0, first_bi
         while done < self.num_workers or buf:
             if next_bi in buf:
-                device, meta, payload = buf.pop(next_bi)
+                device, meta, payload, spans = buf.pop(next_bi)
                 next_bi += 1
+                profiling.record(spans)
                 yield self._attach_geom(device, meta, payload, attach_geom)
                 continue
-            _, bi, device, meta, payload = self._get()
+            _, bi, device, meta, payload, spans = self._get()
             if bi is None:
                 done += 1
             else:
-                buf[bi] = (device, meta, payload)
+                buf[bi] = (device, meta, payload, spans)
         # drain any leftovers (shouldn't happen; defensive)
         while next_bi in buf:
-            device, meta, payload = buf.pop(next_bi)
+            device, meta, payload, spans = buf.pop(next_bi)
             next_bi += 1
+            profiling.record(spans)
             yield self._attach_geom(device, meta, payload, attach_geom)
 
     def shutdown(self):
@@ -418,9 +449,13 @@ class DataLoader:
         def produce(q):
             try:
                 for bi in range(first_bi, len(self)):
-                    q.put(self._strip_geom(*produce_batch(
+                    stamps = []
+                    batch = self._strip_geom(*produce_batch(
                         self.dataset, self.indices, bi, self.batch_size,
-                        self.chunk_rays, spec, self.epoch, self.seed0)))
+                        self.chunk_rays, spec, self.epoch, self.seed0,
+                        stamps))
+                    q.put((batch, _batch_spans(stamps, self.epoch, bi,
+                                               "thread")))
             except BaseException as e:  # noqa: BLE001 — re-raised below
                 q.put(e)
             finally:
@@ -435,9 +470,25 @@ class DataLoader:
                 return
             if isinstance(item, BaseException):
                 raise item
-            yield item
+            batch, spans = item
+            profiling.record(spans)
+            yield batch
 
     def __iter__(self):
+        """The batches in order; the consumer's wait for each (and for the
+        end) is the span loader.wait (epoch, bi)."""
+        it = self._batches()
+        try:
+            for bi in itertools.count():
+                with profiling.span("loader.wait", epoch=self.epoch, bi=bi):
+                    item = next(it, None)
+                if item is None:
+                    return
+                yield item
+        finally:
+            it.close()
+
+    def _batches(self):
         first_bi = 0
         if self.hat_cfg is not None and "rows_caps" not in self.hat_state:
             device, meta = self._derive_hat_static()

@@ -33,6 +33,7 @@ from ..ops.compositing import raw2outputs
 from ..ops.hat_interp import (decode_z, expand_segments, hat_interpolate,
                               inverse_perm)
 from ..ops.ray_ops import sample_along_rays, stratified_z_vals
+from ..utils.profiling import span
 
 
 class RenderSettings(NamedTuple):
@@ -399,10 +400,12 @@ def render_rays(params, batch, settings: RenderSettings, train=False,
         raise ValueError(
             f"ray count {R} must be a multiple of chunk_rays {chunk}")
 
-    volumes, new_stats = lx.encode_sparse_voxels(
-        params, batch["geom"], s.model, densify=not s.site_interp)
-    ivols = (sparse_conv_net.index_volumes(batch["geom"], s.model.encoder)
-             if s.site_interp else None)
+    with span("render.encode"):
+        volumes, new_stats = lx.encode_sparse_voxels(
+            params, batch["geom"], s.model, densify=not s.site_interp)
+        ivols = (sparse_conv_net.index_volumes(batch["geom"],
+                                               s.model.encoder)
+                 if s.site_interp else None)
 
     outs = []
     for b in range(B):
@@ -410,12 +413,14 @@ def render_rays(params, batch, settings: RenderSettings, train=False,
         frame = _frame_info(batch, b)
         vols = [v[b] for v in volumes]
         iv = [v[b] for v in ivols] if s.site_interp else None
-        chunks = [
-            _render_chunk(params, elem, frame, vols, iv, s,
-                          tuple(elem[k][c0:c0 + chunk]
-                                for k in ("ray_o", "ray_d", "near", "far")),
-                          train, generator)
-            for c0 in range(0, R, chunk)]
+        chunks = []
+        for i, c0 in enumerate(range(0, R, chunk)):
+            with span("render.chunk", chunk=i):
+                chunks.append(_render_chunk(
+                    params, elem, frame, vols, iv, s,
+                    tuple(elem[k][c0:c0 + chunk]
+                          for k in ("ray_o", "ray_d", "near", "far")),
+                    train, generator))
         outs.append({k: torch.cat([c[k] for c in chunks])
                      for k in chunks[0]})
     ret = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

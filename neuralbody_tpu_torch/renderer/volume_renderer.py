@@ -17,6 +17,7 @@ from ..models import nerf
 from ..ops.compositing import raw2outputs
 from ..ops.ray_ops import stratified_z_vals
 from ..ops.sample_pdf import sample_pdf
+from ..utils.profiling import span
 
 
 class NerfRenderSettings(NamedTuple):
@@ -97,12 +98,14 @@ def render_nerf_rays(params, batch, settings: NerfRenderSettings,
 
     outs = []
     for b in range(B):
-        chunks = [
-            _render_chunk(params, s, batch["ray_o"][b, c0:c0 + chunk],
-                          batch["ray_d"][b, c0:c0 + chunk],
-                          batch["near"][b, c0:c0 + chunk],
-                          batch["far"][b, c0:c0 + chunk], train, generator)
-            for c0 in range(0, R, chunk)]
+        chunks = []
+        for i, c0 in enumerate(range(0, R, chunk)):
+            with span("render.chunk", chunk=i):
+                chunks.append(_render_chunk(
+                    params, s, batch["ray_o"][b, c0:c0 + chunk],
+                    batch["ray_d"][b, c0:c0 + chunk],
+                    batch["near"][b, c0:c0 + chunk],
+                    batch["far"][b, c0:c0 + chunk], train, generator))
         outs.append({k: torch.cat([c[k] for c in chunks])
                      for k in chunks[0]})
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}, {}

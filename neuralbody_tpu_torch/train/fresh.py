@@ -47,7 +47,9 @@ on top.
 """
 from __future__ import annotations
 
+import itertools
 import os
+import time
 
 import numpy as np
 import torch
@@ -61,6 +63,7 @@ from ..parallel.train import (make_sharded_scan_step,
                               make_sharded_scan_step_banked)
 from ..parallel.transfer import DevicePrefetcher, StagingRing
 from ..utils.platform import resolve_device
+from ..utils.profiling import span
 from .optimizer import make_optimizer
 
 CONFIG_313 = os.path.join(
@@ -256,39 +259,83 @@ class ConfigRun:
         staged by then is dispatched after each batch, as the JAX Trainer
         does (neuralbody_tpu/train/trainer.py:210-226). A plan built on
         the device that overflowed raises (check_overflow: the dispatches
-        check their predecessors, the epoch its last)."""
+        check their predecessors, the epoch its last).
+
+        Each next() on the loader is timed into data_waits (the seconds
+        of each, the epoch's last, which ends it, included; the Trainer
+        takes them) and is the span train.data_wait (epoch, bi); handing a
+        group to the prefetcher and waiting for it at the end are
+        train.submit, a dispatch train.dispatch (epoch, dispatch)."""
         yield from self._epoch(epoch, loader)
         self.check_overflow()
+
+    def take_data_waits(self):
+        """The data waits noted since the last call, in seconds."""
+        waits, self.data_waits = self.data_waits, []
+        return waits
+
+    def _batches(self, loader, epoch):
+        it = iter(loader)
+        for bi in itertools.count():
+            with span("train.data_wait", epoch=epoch, bi=bi):
+                t = time.perf_counter()
+                item = next(it, None)
+                self.data_waits.append(time.perf_counter() - t)
+            if item is None:
+                return
+            yield item
 
     def _epoch(self, epoch, loader):
         loader = self.loader(epoch) if loader is None else loader
         # the JAX Trainer's key of the epoch (trainer.py:119-120); the same
         # Generator object, so that a graph that registered it stays valid
         self.generator.manual_seed(epoch * 100003 + self.seed)
-        pending, keys, full = [], [], False
+        self.data_waits = []
+        pending, keys, full, n = [], [], False, 0
+
+        def dispatch(group, fn):
+            nonlocal n
+            with span("train.dispatch", epoch=epoch, dispatch=n):
+                stats = fn(group)
+            n += 1
+            return stats
+
         if self.bank is None:
-            for batch, _ in loader:
+            for batch, _ in self._batches(loader, epoch):
                 pending.append(batch)
                 if len(pending) == self.G:
-                    yield self.dispatch(pending)
+                    yield dispatch(pending, self.dispatch)
                     pending, full = [], True
             if pending and not full:
-                yield self.dispatch(pending)
+                yield dispatch(pending, self.dispatch)
             return
         prefetch = DevicePrefetcher(self.stage, depth=PREFETCH_DEPTH)
+        submitted = 0
+
+        def submit(group):
+            nonlocal submitted
+            with span("train.submit", epoch=epoch, dispatch=submitted):
+                prefetch.submit(group)
+            submitted += 1
+
         try:
-            for batch, meta in loader:
+            for batch, meta in self._batches(loader, epoch):
                 pending.append(batch)
                 keys.append(meta.get("geom_keys"))
                 if len(pending) == self.G:
-                    prefetch.submit((pending, keys))
+                    submit((pending, keys))
                     pending, keys, full = [], [], True
                 for staged in prefetch.ready():
-                    yield self.dispatch_staged(staged)
+                    yield dispatch(staged, self.dispatch_staged)
             if pending and not full:
-                prefetch.submit((pending, keys))
-            for staged in prefetch.drain():
-                yield self.dispatch_staged(staged)
+                submit((pending, keys))
+            rest = prefetch.drain()
+            while True:
+                with span("train.submit", epoch=epoch, dispatch=n):
+                    staged = next(rest, None)
+                if staged is None:
+                    break
+                yield dispatch(staged, self.dispatch_staged)
         finally:
             # a stage() waiting for a set that an abandoned epoch holds
             # raises, the thread ends, and every set is free again

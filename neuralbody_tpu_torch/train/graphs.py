@@ -33,6 +33,7 @@ from ..parallel.transfer import Staged
 from ..renderer.dispatch import get_render_fn
 from ..renderer.renderer import RenderSettings
 from ..utils.platform import resolve_device, to_device
+from ..utils.profiling import span
 from .optimizer import Adam, tree_leaves, tree_map
 from .step import loss_and_grads, merge_bn_stats, scan_length, scan_slice
 
@@ -99,30 +100,32 @@ def _check_on(device, tensors, what):
 def _capture(body, restore, generator=None):
     """Run body() WARMUP times on a side stream, call restore(), and
     capture one call of body() into a new graph with a private memory pool.
-    Returns (graph, that call's outputs)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(WARMUP):
-            body()
-    torch.cuda.current_stream().wait_stream(side)
-    restore()
-    graph = torch.cuda.CUDAGraph()
-    if generator is not None:
-        if not hasattr(graph, "register_generator_state"):
-            raise RuntimeError(
-                f"torch {torch.__version__} cannot register a "
-                "torch.Generator with a CUDA graph; the raw-noise term "
-                "(raw_noise_std > 0) and the perturbed depths of a plan "
-                "built on the device cannot be captured")
-        graph.register_generator_state(generator)
-    # thread_local: the prefetcher's thread (parallel/transfer.py) may stage
-    # the next group (event waits, copies on its own stream) while this
-    # thread captures; CUDA refuses such calls from other threads in the
-    # default "global" mode
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        out = body()
-    return graph, out
+    Returns (graph, that call's outputs). The span graph.capture holds it
+    all."""
+    with span("graph.capture"):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP):
+                body()
+        torch.cuda.current_stream().wait_stream(side)
+        restore()
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            if not hasattr(graph, "register_generator_state"):
+                raise RuntimeError(
+                    f"torch {torch.__version__} cannot register a "
+                    "torch.Generator with a CUDA graph; the raw-noise term "
+                    "(raw_noise_std > 0) and the perturbed depths of a plan "
+                    "built on the device cannot be captured")
+            graph.register_generator_state(generator)
+        # thread_local: the prefetcher's thread (parallel/transfer.py) may
+        # stage the next group (event waits, copies on its own stream)
+        # while this thread captures; CUDA refuses such calls from other
+        # threads in the default "global" mode
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = body()
+        return graph, out
 
 
 class StepGraph:

@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import datetime
 import os
-import time
 from collections import defaultdict, deque
 
 import numpy as np
@@ -120,14 +119,3 @@ class Recorder:
                   f"data: {self.data_time.avg:.3f}s",
                   f"batch: {self.batch_time.avg:.3f}s"]
         return "  ".join(parts)
-
-
-class Timer:
-    def __init__(self):
-        self.t = time.time()
-
-    def tick(self):
-        now = time.time()
-        dt = now - self.t
-        self.t = now
-        return dt

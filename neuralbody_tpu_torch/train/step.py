@@ -21,6 +21,7 @@ from ..parallel.geom import take
 from ..parallel.transfer import Staged
 from ..renderer.dispatch import get_render_fn
 from ..utils.platform import resolve_device, to_device
+from ..utils.profiling import span
 from .optimizer import Adam, tree_leaves, tree_map
 
 
@@ -250,12 +251,18 @@ def eval_step(params, batch, settings, device=None):
 
     Returns dict rgb_map [B,R,3], disp_map/acc_map/depth_map [B,R]; a
     NeRF render with a fine pass adds rgb0, disp0, acc0 and z_std.
+
+    The span render.image holds the call, render.upload the moves to the
+    device; the renderers' chunk loops open render.encode and
+    render.chunk inside it.
     """
     device = resolve_device(device)
-    params = to_device(params, device)
-    batch = to_device(batch, device)
-    with torch.no_grad():
-        ret, _ = get_render_fn(settings)(params, batch, settings)
+    with span("render.image"):
+        with span("render.upload"):
+            params = to_device(params, device)
+            batch = to_device(batch, device)
+        with torch.no_grad():
+            ret, _ = get_render_fn(settings)(params, batch, settings)
     return ret
 
 

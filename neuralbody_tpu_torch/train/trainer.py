@@ -27,7 +27,9 @@ primary rank evaluates, records, prints and writes checkpoints.
 """
 from __future__ import annotations
 
+import itertools
 import signal
+import time
 
 import numpy as np
 import torch
@@ -39,8 +41,9 @@ from ..parallel import bootstrap
 from ..parallel.mesh import replicate_state
 from ..parallel.train import ShardedEval
 from .checkpoint import load_checkpoint, save_checkpoint
+from ..utils.profiling import span
 from .fresh import ConfigRun
-from .recorder import Recorder, Timer
+from .recorder import Recorder
 
 
 class Trainer:
@@ -117,31 +120,48 @@ class Trainer:
             self.run.pool = self.pool
 
     def train_epoch(self, epoch):
-        cfg, rec = self.cfg, self.recorder
+        """Train one epoch. The recorder's data_time takes each batch's wait
+        in the loader's next() (ConfigRun.data_waits), its batch_time each
+        dispatch's whole wall time, from the previous dispatch's stats (or
+        the epoch's start) to its own, over its steps. Spans (epoch,
+        dispatch): train.iteration holds the epoch's work up to a
+        dispatch's stats (ConfigRun's spans, and the loop's own time
+        between them), train.readback reading the stats back,
+        train.record the recorder's update, status line and record."""
+        cfg, rec, run = self.cfg, self.recorder, self.run
         self._start_pool()
-        loader = self.run.loader(epoch)
+        loader = run.loader(epoch)
         n_iter = len(loader)
-        timer = Timer()
-
-        def timed(batches):
-            for item in batches:
-                rec.data_time.update(timer.tick())
-                yield item
-
-        it = 0
-        for stats in self.run.epoch(epoch, loader=timed(loader)):
+        it, t = 0, time.perf_counter()
+        dispatches = run.epoch(epoch, loader=loader)
+        for d in itertools.count():
+            with span("train.iteration", epoch=epoch, dispatch=d):
+                stats = next(dispatches, None)
+            if stats is None:
+                break
             g = len(stats["loss"])
             rec.step += g
             it += g
-            rec.batch_time.update(timer.tick() / g)
+            for w in run.take_data_waits():
+                rec.data_time.update(w)
+            now = time.perf_counter()
+            rec.batch_time.update((now - t) / g)
+            t = now
             if it % cfg.log_interval < g and self.is_primary:
-                # the last step's stats, read back in one copy
-                last = torch.stack([v[-1].float() for v in stats.values()])
-                rec.update(dict(zip(stats, last.tolist())))
-                lr = float(self.run.schedule(rec.step))
-                print(rec.status_line(epoch, it, n_iter, lr), flush=True)
+                with span("train.readback", epoch=epoch, dispatch=d):
+                    # the last step's stats, read back in one copy
+                    last = torch.stack([v[-1].float()
+                                        for v in stats.values()]).tolist()
+                with span("train.record", epoch=epoch, dispatch=d):
+                    rec.update(dict(zip(stats, last)))
+                    lr = float(run.schedule(rec.step))
+                    print(rec.status_line(epoch, it, n_iter, lr),
+                          flush=True)
             if it % cfg.record_interval < g:
-                rec.record("train")
+                with span("train.record", epoch=epoch, dispatch=d):
+                    rec.record("train")
+        for w in run.take_data_waits():    # the epoch's end
+            rec.data_time.update(w)
 
     def fit(self):
         """Resume, then train epochs up to cfg.train.epoch with the

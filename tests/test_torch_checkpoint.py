@@ -364,7 +364,7 @@ def test_load_torch_checkpoint_reads_weights_only(tmp_path, rng):
 def test_profiling_on_the_cpu(tmp_path):
     logdir = str(tmp_path / "trace")
     with profiling.trace(logdir):
-        with profiling.annotate("matmul"):
+        with profiling.span("matmul"):
             torch.ones(8, 8) @ torch.ones(8, 8)
     (name,) = os.listdir(logdir)
     with open(os.path.join(logdir, name)) as f:
@@ -375,5 +375,3 @@ def test_profiling_on_the_cpu(tmp_path):
     finally:
         profiling.enable_nan_checks(False)
     assert not torch.is_anomaly_enabled()
-    if not torch.cuda.is_available():
-        assert profiling.device_memory_stats() == {}
