@@ -14,7 +14,9 @@ through their entry points:
   * the plan-free eval render (eval_step on a rays-only batch of 8192 rays
     in four chunks, hull culling on), bf16 and f32, through the
     site-interpolation and the dense branch: held against the port's CPU
-    render, the two branches against each other, and the site render of
+    render, the two branches against each other, the site sampler's
+    kernel against its plain version on the site render's own chunks
+    (one launch a chunk, no plain call), and the site render of
     the 1024-ray batch against its hat render; then render_density_grid on
     one chunk of points against the CPU;
   * the NeRF baseline family (D=8, W=256, 64 coarse + 128 importance
@@ -101,9 +103,11 @@ its scan, and backward, its sums in one fixed order; the gather-fused sparse con
 in all 17 layers of the encoder, forward and dx, timed beside the conv
 weight gradient; and the dense layer in every layer of the NeRF MLPs: the product forward, dx and dW on its tensor-core, narrow and FMA
 routes, and `linear` with the bias and the ReLU in the epilogue, forward
-and its three gradients) is held against its plain PyTorch version on the
+and its three gradients; the site sampler's four levels in one launch a
+chunk of the plan-free render) is held against its plain PyTorch version on the
 inputs the main paths hand it, and timed beside its plain version, a
-library yardstick and its bound; the renders and the training steps are
+library yardstick (where one PyTorch call computes the function) and its
+bound; the renders and the training steps are
 timed and profiled. The conv library's machine code is read with cuobjdump
 to show that both modes of the conv issue tensor-core (HMMA) instructions.
 
@@ -173,6 +177,9 @@ CONV_LAYERS = 17          # sparse convs per encode (and dx per backward)
 CONV_TOL = 1e-5   # of the layer's scale, f32 and bf16 storage alike: both
 # versions round the operands alike, so only the f32 sum's order differs
 SITE_DENSE_TOL = 1e-4     # the two branches read the same numbers (f32)
+SITE_TOL = 1e-6   # the site sampler's kernel against its plain version, of
+# the output's scale: the kernel repeats the plain f32 operations in their
+# order and upcasts bf16 features exactly: equal bits is the design target
 N_IMPORTANCE = 128        # the NeRF configs: 64 coarse + 128 importance
 NERF_ALPHA_BIAS = 1.0     # on alpha_linear of both MLPs, card and CPU alike:
 # random weights leave half the samples empty, and an empty last bin makes
@@ -1163,10 +1170,12 @@ def dist_entry(torch, card, root, work, failed):
 
 def kernel_counts(*names):
     """Every hand kernel's launch counter: hat forward, hat backward, conv
-    (all), conv dx, dense products, dense column sums, and the dense
-    products by route with those that carried an epilogue. With names,
-    just those counters as a tuple."""
-    from neuralbody_tpu_torch.ops import conv_kernel, dense_kernel, hat_kernel
+    (all), conv dx, dense products, dense column sums, the dense products
+    by route with those that carried an epilogue, and the site sampler's
+    kernel with its plain version's calls. With names, just those counters
+    as a tuple."""
+    from neuralbody_tpu_torch.ops import (conv_kernel, dense_kernel,
+                                          hat_kernel, site_sample_kernel)
     counts = dict(hat_fwd=hat_kernel.LAUNCHES,
                   hat_bwd=hat_kernel.BWD_LAUNCHES,
                   conv=conv_kernel.CONV_LAUNCHES,
@@ -1174,7 +1183,9 @@ def kernel_counts(*names):
                   dense=dense_kernel.MM_LAUNCHES,
                   dense_sum=dense_kernel.SUM_LAUNCHES,
                   routes=dict(dense_kernel.ROUTE_LAUNCHES,
-                              epilogue=dense_kernel.EPILOGUE_LAUNCHES))
+                              epilogue=dense_kernel.EPILOGUE_LAUNCHES),
+                  site=site_sample_kernel.LAUNCHES,
+                  site_plain=site_sample_kernel.PLAIN_CALLS)
     return tuple(counts[n] for n in names) if names else counts
 
 
@@ -1183,8 +1194,10 @@ HAT_CONV = ("hat_fwd", "hat_bwd", "conv")
 
 
 def reset_kernel_counts():
-    from neuralbody_tpu_torch.ops import conv_kernel, dense_kernel, hat_kernel
+    from neuralbody_tpu_torch.ops import (conv_kernel, dense_kernel,
+                                          hat_kernel, site_sample_kernel)
     hat_kernel.LAUNCHES = hat_kernel.BWD_LAUNCHES = 0
+    site_sample_kernel.LAUNCHES = site_sample_kernel.PLAIN_CALLS = 0
     conv_kernel.CONV_LAUNCHES = conv_kernel.CONV_DX_LAUNCHES = 0
     dense_kernel.MM_LAUNCHES = dense_kernel.SUM_LAUNCHES = 0
     dense_kernel.EPILOGUE_LAUNCHES = 0
@@ -2893,7 +2906,8 @@ def main():
     from neuralbody_tpu_torch.models import latent_xyzc as lx
     from neuralbody_tpu_torch.models.sparse_conv_net import EncoderStatic
     from neuralbody_tpu_torch.ops import (conv_kernel, dense_kernel,
-                                          hat_interp, hat_kernel, sparse_conv)
+                                          hat_interp, hat_kernel,
+                                          site_sample_kernel, sparse_conv)
     from neuralbody_tpu_torch.renderer.renderer import (RenderSettings,
                                                         render_density_grid)
     from neuralbody_tpu_torch import bench as port_bench
@@ -2922,10 +2936,11 @@ def main():
 
     # -- 2. build: one nvcc call per source, all started together -----------
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         for job in [pool.submit(hat_kernel.build),
                     pool.submit(conv_kernel.build),
-                    pool.submit(dense_kernel.build)]:
+                    pool.submit(dense_kernel.build),
+                    pool.submit(site_sample_kernel.build)]:
             job.result()
     emit(phase="build",
          sources={"neuralbody_tpu_torch/csrc/hat_interp.cu":
@@ -2938,7 +2953,10 @@ def main():
                    "cluster)"],
                   "neuralbody_tpu_torch/csrc/dense_mm.cu":
                   ["dense_mm_cuda (tf32x3, fma, narrow rows, narrow "
-                   "columns; bias and ReLU epilogue)"]},
+                   "columns; bias and ReLU epilogue)"],
+                  "neuralbody_tpu_torch/csrc/site_sample.cu":
+                  ["site_trilinear_cuda (the four levels' site samples, "
+                   "one launch a chunk)"]},
          seconds=time.perf_counter() - t0)
     # the conv kernel's machine code: tensor-core instructions in both modes
     hmma = {}
@@ -3467,13 +3485,31 @@ def main():
                           f"{capture_counts}, replay {r}")
 
     # -- 5b. the plan-free eval render: rays only, chunked, hull culling on --
+    # the site branch's renders record what each chunk hands the site
+    # sampler's wrapper: one kernel launch a chunk, no plain call
     branches = ("site", "dense")
     eval_renders = {}
+    site_inputs = {mode: [] for mode in modes}
+    site_launches = {}
+    site_launch = site_sample_kernel.site_trilinear
+
+    def site_recorder(feats, ivols, dhw, out_sh, caps):
+        site_inputs[mode].append(([f.clone() for f in feats],
+                                  [v.clone() for v in ivols], dhw.clone(),
+                                  tuple(out_sh), tuple(caps)))
+        return site_launch(feats, ivols, dhw, out_sh, caps)
+
     for branch in branches:
         for mode in modes:
             reset_kernel_counts()
-            ret = eval_step(params, ebatch_dev,
-                            eval_settings(mode, branch == "site"), device=dev)
+            if branch == "site":
+                site_sample_kernel.site_trilinear = site_recorder
+            try:
+                ret = eval_step(params, ebatch_dev,
+                                eval_settings(mode, branch == "site"),
+                                device=dev)
+            finally:
+                site_sample_kernel.site_trilinear = site_launch
             torch.cuda.synchronize()
             launches[(f"eval_{branch}", mode)] = kernel_counts(*HAT_CONV)
             if launches[(f"eval_{branch}", mode)] != (0, 0, CONV_LAYERS):
@@ -3481,8 +3517,40 @@ def main():
                     f"{mode} {branch} render launched the kernels "
                     f"{launches[(f'eval_{branch}', mode)]} times, not "
                     f"(0, 0, {CONV_LAYERS})")
+            site_launches[(branch, mode)] = kernel_counts("site",
+                                                          "site_plain")
+            want = (EVAL_RAYS // CHUNK_RAYS if branch == "site" else 0, 0)
+            if (site_launches[(branch, mode)] != want
+                    or branch == "site"
+                    and len(site_inputs[mode]) != want[0]):
+                raise AssertionError(
+                    f"{mode} {branch} render: site sampler (kernel, plain) "
+                    f"{site_launches[(branch, mode)]}, recorded "
+                    f"{len(site_inputs[mode])} chunks, not {want}")
             eval_renders[(branch, mode)] = check_maps(
                 ret, EVAL_RAYS, f"{mode} {branch} render")
+    # the kernel against its plain version on the render's own chunks
+    site_err = {}
+    for mode in modes:
+        worst, equal = 0.0, True
+        for feats, ivols, dhw, out_sh, caps in site_inputs[mode]:
+            got = site_launch(feats, ivols, dhw, out_sh, caps)
+            ref = site_sample_kernel.site_trilinear_plain(
+                feats, ivols, dhw, out_sh, caps)
+            scale = max(1.0, ref.abs().max().item())
+            worst = max(worst, (got - ref).abs().max().item() / scale)
+            equal = equal and torch.equal(got.view(torch.int32),
+                                          ref.view(torch.int32))
+        site_err[mode] = worst
+        emit(phase="site_sampler_vs_plain", mode=mode,
+             feature_dtype=str(site_inputs[mode][0][0][0].dtype),
+             chunks=len(site_inputs[mode]),
+             points=[c[2].shape[0] for c in site_inputs[mode]],
+             max_rel_err=worst, tol_rel=SITE_TOL, equal_bits=equal,
+             launches=site_launches[("site", mode)])
+        if not worst <= SITE_TOL:
+            raise AssertionError(f"{mode} site sampler kernel vs plain: "
+                                 f"{worst} of scale, over {SITE_TOL}")
     params_cpu = to_device(params, "cpu")
     for branch in branches:
         t0 = time.perf_counter()
@@ -3713,6 +3781,27 @@ def main():
             timing[(f"conv_{kind}", mode)] = tot
             emit(phase="timing_sum", kernel="sparse_conv", direction=kind,
                  mode=mode, layers=len(layers), card=card, **tot)
+
+    # the site sampler on the plan-free render's chunks: its bound is
+    # writing the [N, 352] f32 output once
+    for mode in modes:
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, points=0)
+        for feats, ivols, dhw, out_sh, caps in site_inputs[mode]:
+            args = (feats, ivols, dhw, out_sh, caps)
+            tot["ms"] += median_ms(torch, lambda: site_launch(*args))
+            tot["plain_ms"] += median_ms(
+                torch, lambda: site_sample_kernel.site_trilinear_plain(*args))
+            tot["bound_ms"] += 1e3 * (dhw.shape[0] * 4 * sum(
+                site_sample_kernel.CHANNELS) / HBM_BYTES_PER_S)
+            tot["points"] += dhw.shape[0]
+        tot.update(chunks=len(site_inputs[mode]), bound_by="bytes",
+                   library_ms=None)
+        timing[("site", mode)] = tot
+        emit(phase="timing_sum", kernel="site_trilinear", mode=mode,
+             feature_dtype=str(site_inputs[mode][0][0][0].dtype),
+             out_sh=list(site_inputs[mode][0][3]),
+             caps=list(site_inputs[mode][0][4]), card=card, **tot)
+    del site_inputs
 
     # renders, the two modes interleaved
     render_ms, gaps = interleaved_ms(
@@ -4059,6 +4148,19 @@ def main():
                 "config_path_replay_launches_per_step": (
                     config_replay["conv"] if traced and mode == "bf16"
                     else None)})
+    # the site sampler's kernel (no Pallas kernel: the JAX package leaves
+    # the function to XLA), timed over the plan-free render's four chunks
+    for mode in modes:
+        t = timing[("site", mode)]
+        kernels.append({
+            "name": f"site_trilinear[{mode}]", "route": "cuda",
+            "source": "neuralbody_tpu_torch/csrc/site_sample.cu",
+            "replaces": None, "launches": site_launches[("site", mode)][0],
+            "max_abs_err": site_err[mode],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "chunks": t["chunks"],
+            "points": t["points"]})
     for k in nerf_kernels:   # the config path trains latent_xyzc only
         k.update(config_path_launches=None,
                  config_path_replay_launches_per_step=None)
@@ -4070,7 +4172,8 @@ def main():
         "hat_interp_level[bf16]": ("hat_fwd", fit_counts, val_counts),
         "hat_interp_level_bwd[bf16]": ("hat_bwd", fit_counts, val_counts),
         "sparse_conv_dx[bf16]": ("conv_dx", fit_counts, val_counts),
-        "dense_mm[f32]": ("dense", nerf_fit, nerf_val)}
+        "dense_mm[f32]": ("dense", nerf_fit, nerf_val),
+        "site_trilinear[bf16]": ("site", fit_counts, val_counts)}
     for k in kernels:
         key, fit, val = harness_counts.get(k["name"], (None, None, None))
         if k["name"] == "sparse_conv[bf16]":
@@ -4089,7 +4192,9 @@ def main():
                                       eval_counts, mesh_counts),
         "sparse_conv_dx[f32]": ("conv_dx", quality_counts, eval_counts,
                                 mesh_counts),
-        "dense_mm[f32]": ("dense", None, nerf_eval, nerf_mesh)}
+        "dense_mm[f32]": ("dense", None, nerf_eval, nerf_mesh),
+        "site_trilinear[f32]": ("site", quality_counts, eval_counts,
+                                mesh_counts)}
     for k in kernels:
         row = new_paths.get(k["name"])
         if k["name"] == "sparse_conv[f32]":

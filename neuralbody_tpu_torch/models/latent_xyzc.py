@@ -17,9 +17,10 @@ from typing import NamedTuple
 import torch
 
 from ..config import register
+from ..ops import site_sample_kernel
 from ..ops.embedder import positional_encoding
 from ..ops.grid_sample import multiscale_grid_sample
-from ..ops.sparse_conv import scatter_vertex_codes, site_trilinear_sample
+from ..ops.sparse_conv import scatter_vertex_codes
 from ..utils.platform import constant, resolve_device, to_device
 from . import sparse_conv_net
 from .nn_utils import dense, dense_init, embedding_init, mxu_dtype
@@ -103,12 +104,19 @@ def interpolate_features(grid_coords, volumes):
 def interpolate_site_features(site_feats, index_vols, dhw_vox, static):
     """The same samples from the site features through per-level int32
     index volumes (one batch element): no dense float volume exists, and
-    the backward scatters into [S_l, C] rows."""
-    return torch.cat([
-        site_trilinear_sample(feats, ivol, dhw_vox, static.out_sh,
-                              static.encoder.site_caps[lvl])
-        for lvl, (feats, ivol) in enumerate(zip(site_feats, index_vols), 1)],
-        dim=-1)
+    the backward scatters into [S_l, C] rows.
+
+    Where no gradient flows to the features or the coordinates, the four
+    levels go through ops/site_sample_kernel.site_trilinear (one kernel
+    launch on the card, the plain version on the CPU); else through its
+    plain version, differentiable by autograd."""
+    caps = static.encoder.site_caps[1:]
+    if torch.is_grad_enabled() and (dhw_vox.requires_grad or any(
+            f.requires_grad for f in site_feats)):
+        return site_sample_kernel.site_trilinear_plain(
+            site_feats, index_vols, dhw_vox, static.out_sh, caps)
+    return site_sample_kernel.site_trilinear(site_feats, index_vols, dhw_vox,
+                                             static.out_sh, caps)
 
 
 def get_dhw_vox(ppts, bounds, voxel_size):
