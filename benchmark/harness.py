@@ -5,11 +5,14 @@
 The cell, its configuration and its traffic are found by name:
 BENCHMARK.json's `workloads` entry NAME names a configuration (its file,
 benchmark/configs/<config>.json, names the port's YAML, the overrides and
-the plain reference) and a traffic mix (benchmark/traffic/<traffic>.json:
-the sequence to generate and the loop that drives the port,
-benchmark/loops/<loop>.py). With --trace 1 each per-layer metric of
-BENCHMARK.json that the cell reports is read by benchmark/metrics/<name>.py
-from a traced stretch inside the window.
+the model family `reference`: the plain reference
+benchmark/reference/<reference>.py and the family's files, geometry and
+work count, benchmark/families/<reference>.py) and a traffic mix
+(benchmark/traffic/<traffic>.json: the sequence to generate and the loop
+that drives the port, benchmark/loops/<loop>.py). A family with no module
+ends the run at set-up: exit 2 and no result. With --trace 1 each
+per-layer metric of BENCHMARK.json that the cell reports is read by
+benchmark/metrics/<name>.py from a traced stretch inside the window.
 
 A run: set-up (the port and the card up, the seeded sequence written under
 TMPDIR, weights from the seed on the card, the loop's own warm-up), then

@@ -1,5 +1,6 @@
 """What both loops do: the port's config for the cell over the generated
-sequence, the weights from the seed, and the reference module."""
+sequence, the weights from the seed, and the configuration's model family
+and reference module."""
 from __future__ import annotations
 
 import importlib
@@ -8,9 +9,15 @@ import os
 import numpy as np
 import torch
 
-from .. import sequence
+from .. import families, sequence
 from ..harness import ROOT
 from ..reference.common import iter_leaves, make_weights
+
+
+def family(run):
+    """The configuration's model family (benchmark/families/<reference>.py);
+    CellError 2 where there is none."""
+    return families.find(run.config["reference"])
 
 
 def reference(run):
@@ -21,13 +28,16 @@ def reference(run):
 
 def write_sequence(run):
     """The traffic's sequence, as many frames as the configuration trains,
-    written from the seed under the run's scratch directory (TMPDIR);
-    returns its root."""
+    written from the seed under the run's scratch directory (TMPDIR), then
+    the files the family's dataset reads beyond it; returns its root."""
     s = run.traffic["sequence"]
-    return sequence.write_sequence(
-        os.path.join(run.tmp, "CoreView_bench"), run.seed,
-        int(run.config["num_train_frame"]),
+    n_frames = int(run.config["num_train_frame"])
+    root = sequence.write_sequence(
+        os.path.join(run.tmp, "CoreView_bench"), run.seed, n_frames,
         s["n_cams"], s["hw"], s["n_verts"], run.device)
+    family(run).write_extra(root, run.seed, n_frames, run.config,
+                            run.device)
+    return root
 
 
 def port_cfg(run, root, extra=()):

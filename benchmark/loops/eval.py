@@ -21,15 +21,16 @@ import time
 import numpy as np
 import torch
 
-from ..reference.common import precision, sequence_geometry, view_rays
+from ..reference.common import precision, view_rays
 from ..trace import Tracer
-from .common import (load_into, port_cfg, reference, sample, weights,
-                     write_sequence)
+from .common import (family, load_into, port_cfg, reference, sample,
+                     weights, write_sequence)
 
 
 class Cell:
     def __init__(self, run):
         self.run = run
+        self.family = family(run)
         self.ref = reference(run)
         self.images = []     # (frame, camera, rays, rgb [n, 3]) per image
         self.times = []
@@ -147,9 +148,9 @@ class Cell:
 
     def geometry(self):
         if not hasattr(self, "geos"):
-            self.geos = sequence_geometry(
-                self.root, range(int(self.run.config["num_train_frame"])),
-                self.run.config["voxel_size"])
+            frames = range(int(self.run.config["num_train_frame"]))
+            self.geos = self.family.geometry(self.root, frames,
+                                             self.run.config)
         return self.geos
 
     def chosen(self):

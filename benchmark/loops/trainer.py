@@ -23,10 +23,9 @@ import numpy as np
 import torch
 
 from ..reference.common import (Adam, near_far, pixels_of_rays,
-                                precision, sequence_geometry, target_image,
-                                view_cameras)
+                                precision, target_image, view_cameras)
 from ..trace import Tracer
-from .common import (leaves, load_into, num_workers, pick, port_cfg,
+from .common import (family, leaves, load_into, num_workers, pick, port_cfg,
                      reference, weights, write_sequence)
 
 FULL_KEYS = ("ray_o", "ray_d", "near", "far", "rgb", "ray_mask",
@@ -72,6 +71,7 @@ def record(batch, meta, keys):
 class Cell:
     def __init__(self, run):
         self.run = run
+        self.family = family(run)
         self.ref = reference(run)
         self.first = []       # the checked steps' batches, whole
         self.kept = {}        # traced run: batch index -> TRACE_KEYS copy
@@ -271,8 +271,8 @@ class Cell:
     def geometry(self):
         if not hasattr(self, "geos"):
             frames = range(int(self.run.config["num_train_frame"]))
-            self.geos = sequence_geometry(
-                self.root, frames, self.run.config["voxel_size"])
+            self.geos = self.family.geometry(self.root, frames,
+                                             self.run.config)
         return self.geos
 
     def _element(self, rec):

@@ -1,12 +1,13 @@
-"""Cells, configurations, traffic mixes and per-layer readers are found by
-the names in BENCHMARK.json, and every name obeys the benchmark's rules."""
+"""Cells, configurations, model families, traffic mixes and per-layer
+readers are found by the names in BENCHMARK.json, and every name obeys the
+benchmark's rules."""
 import importlib
 import os
 import re
 
 import pytest
 
-from benchmark import harness
+from benchmark import families, harness
 from benchmark.tests.tiny import load_bench
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -26,6 +27,19 @@ def test_cell_found_by_name(cell):
     names = {m["name"] for m in e2e}
     assert "setup_s" in names and len(names) >= 2 and layer
     assert all(m["moves"] in names for m in layer)
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_family_found_by_name(config):
+    conf = next(c for c in BENCH["configs"] if c["name"] == config)
+    name = harness.load_json(os.path.join(harness.ROOT,
+                                          conf["file"]))["reference"]
+    mod = families.find(name)
+    assert mod.__name__ == "benchmark.families." + name
+    assert families.API == ("write_extra", "geometry", "train_work",
+                            "render_work")
+    for f in families.API:
+        assert callable(getattr(mod, f)), f
 
 
 def test_unknown_cell_refused():
